@@ -4,17 +4,29 @@
 Drives the port's main path on one CUDA card and fails loudly:
 
 1. environment — the card's name and power limit, torch and CUDA versions;
-2. build — ``nvcc`` compiles ``kernels/csrc/*.cu`` for sm_90a, one process per
-   source, all at once;
-3. kernels — each hand-written kernel (qmatmul, qmatmul_packed, qattention)
-   held bit-exact against its plain PyTorch version at the token path's
-   shapes, then timed with CUDA events beside its bound;
-4. slice — the compiled token path at Qwen3-1.7B widths (vocab 151936,
+2. build — ``nvcc`` compiles ``kernels/csrc/*.cu`` (qmatmul, qattention,
+   qact_lut) for sm_90a, one process per source, all at once;
+3. kernels — each hand-written kernel (qmatmul, qmatmul_packed, qattention,
+   qact_lut) held bit-exact against its plain PyTorch version at the shapes
+   its paths give it (the token path; the K-edge and conv GEMMs of the CNN;
+   the MLP's LUT layers), then timed with CUDA events beside its bound;
+4. token path — the compiled token path at Qwen3-1.7B widths (vocab 151936,
    d_model 2048, 16 heads of 128, d_ff 6144; depth cut to ``N_LAYERS``),
    built twice from one seed — backend ``cuda`` and backend ``ref`` — and
    held identical through prefill, decode steps and ServeEngine generation;
-5. summary — one JSON line of the kernels with their launch counts on the
-   slice phase, then the card line, then the ``{"ok": true, ...}`` line.
+5. slice A — the paper's Tanh/Sigmoid MLP (§4/§6; fp16 tanh flow) at the
+   feed-forward widths 2048 → 6144 → 6144 → 2048, served by
+   ``CompiledModelServer`` on both backends, responses identical and equal
+   to the numpy ``ReferenceRuntime`` on a sample;
+6. slice B — the paper's §5 CNN (stride-2 ConvInteger stack with ResNet-18's
+   stage widths, 7×7/2 stem, 1000-way FC head, 3×224×224 input), served
+   the same way;
+7. summary — one JSON line of the kernels with their launch counts summed
+   over the counted runs of phases 4–6, then the card line, then the
+   ``{"ok": true, ...}`` line.
+
+Each of phases 4–6 zeroes the launch counters just before its counted run
+and reads them just after; a kernel of that path launched no time fails.
 
 Any mismatch or exception exits non-zero; nothing falls back to the CPU or
 to a kernel's plain version.  Run from the repository root:
@@ -85,6 +97,12 @@ def time_ms(fn, flush) -> float:
     return times[len(times) // 2]
 
 
+def _int8(rng, shape):
+    import numpy as np
+
+    return rng.integers(-128, 128, shape).astype(np.int8)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -96,6 +114,13 @@ MATMUL_SHAPES = [  # (K, N, bits, relu): qkv, o, up, down of one layer
     (6144, 2048, 4, False),
 ]
 MATMUL_M = (4, 77, 128, 512)
+#: K off the kernel's 32-bit words (the conv route's C·kH·kW), both lanes
+EDGE_K, EDGE_M, EDGE_N = (10, 27, 147), (4, 77), 64
+#: slice B's conv GEMMs at batch 16: the stem and the last conv, (M, K, N)
+CONV_GEMMS = [(16 * 112 * 112, 3 * 7 * 7, 64), (16 * 7 * 7, 512 * 3 * 3, 512)]
+#: qact_lut shapes: a decode row, slice A's largest bucket, a large batch,
+#: a ragged tile whose numel is not a multiple of 16
+LUT_SHAPES = [(1, 6144), (64, 6144), (4096, 6144), (37, 2051)]
 ATTN_SHAPES = [(1, 512), (1, 77), (128, 128), (77, 96)]  # (S, T) at B=4, dh=128
 DECODE_M = 4  # rows of a decode step at 4 slots
 
@@ -113,60 +138,110 @@ def _matmul_operands(rng, k, n, bits, device):
     return ops.template_qmatmul_params(w, bias, qs, qsh, weight_bits=bits, device=device)
 
 
+def _max_err(got, want) -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"kernel gave {got.dtype}{tuple(got.shape)}, plain {want.dtype}{tuple(want.shape)}")
+    return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+
+def _check_matmul(rng, device, flush, rows, worst, m, k, n, bits, relu, tag=""):
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qmatmul as qmm
+
+    consts, shape = _matmul_operands(rng, k, n, bits, device)
+    name = "qmatmul_packed" if bits == 4 else "qmatmul"
+    kern = qmm.qmatmul_packed if bits == 4 else qmm.qmatmul
+    plain = qmm.qmatmul_packed_plain if bits == 4 else qmm.qmatmul_plain
+    x = torch.from_numpy(_int8(rng, (m, k))).to(device)
+    bm = ops.bind_qmatmul_axes({**shape, "lead": (m,)}, None)["bm"]
+    kw = dict(n=n, relu=relu, two_mul=True, bm=bm)
+    err = _max_err(kern(x, *consts, **kw), plain(x, *consts, **kw))
+    worst[name] = max(worst[name], err)
+    if err:
+        raise AssertionError(f"{name} K={k} N={n} M={m}: max |kernel - plain| = {err}")
+    wbytes = k * n // 2 if bits == 4 else k * n
+    b_ms, b_by = bound_ms(m * k + wbytes + 12 * n + m * n, 2.0 * m * n * k)
+    ms = time_ms(lambda: kern(x, *consts, **kw), flush)
+    pms = time_ms(lambda: plain(x, *consts, **kw), flush)
+    rows.append(dict(kernel=name, shape=f"M={m},K={k},N={n},w{bits}{',relu' if relu else ''}{tag}",
+                     ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+    log(f"  {name:15s} M={m:6d} K={k:4d} N={n:4d} w{bits}{tag}: exact, {ms:.4f} ms "
+        f"(plain {pms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
+
+
+def _check_lut(flush, rows, worst, x, lut, tag):
+    import torch
+
+    from repro_torch.kernels import qact_lut as qact
+
+    err = _max_err(qact.qact_lut(x, lut), qact.qact_lut_plain(x, lut))
+    worst["qact_lut"] = max(worst["qact_lut"], err)
+    if err:
+        raise AssertionError(f"qact_lut {tag}: max |kernel - plain| = {err}")
+    # the library yardstick gathers with int64 indices converted beforehand,
+    # so its time leaves out the int8 -> int64 conversion a real call needs
+    idx = x.to(torch.int64) + 128
+    lms = time_ms(lambda: torch.take(lut, idx), flush)
+    ms = time_ms(lambda: qact.qact_lut(x, lut), flush)
+    pms = time_ms(lambda: qact.qact_lut_plain(x, lut), flush)
+    b_ms, b_by = bound_ms(2 * x.numel() + 256, 0.0)
+    rows.append(dict(kernel="qact_lut", shape=tag, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lms, max_abs_err=err))
+    log(f"  qact_lut        {tag}: exact, {ms:.4f} ms (plain {pms:.4f} ms, torch.take "
+        f"{lms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
+
+
 def check_kernels(device, flush, rows):
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops
     from repro_torch.kernels import qattention as qatt
-    from repro_torch.kernels import qmatmul as qmm
     from repro_torch.core.patterns import ATTN_BIG, ATTN_LUT_SCALE, ATTN_P_SCALE, build_exp_lut
 
     rng = np.random.default_rng(0)
-    worst = {"qmatmul": 0, "qmatmul_packed": 0, "qattention": 0}
+    worst = {"qmatmul": 0, "qmatmul_packed": 0, "qattention": 0, "qact_lut": 0}
     for k, n, bits, relu in MATMUL_SHAPES:
-        consts, shape = _matmul_operands(rng, k, n, bits, device)
-        name = "qmatmul_packed" if bits == 4 else "qmatmul"
-        kern = qmm.qmatmul_packed if bits == 4 else qmm.qmatmul
-        plain = qmm.qmatmul_packed_plain if bits == 4 else qmm.qmatmul_plain
         for m in MATMUL_M:
-            x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(device)
-            bm = ops.bind_qmatmul_axes({**shape, "lead": (m,)}, None)["bm"]
-            kw = dict(n=n, relu=relu, two_mul=True, bm=bm)
-            got = kern(x, *consts, **kw)
-            want = plain(x, *consts, **kw)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-            worst[name] = max(worst[name], err)
-            if err:
-                raise AssertionError(f"{name} K={k} N={n} M={m}: max |kernel - plain| = {err}")
-            wbytes = k * n // 2 if bits == 4 else k * n
-            b_ms, b_by = bound_ms(m * k + wbytes + 12 * n + m * n, 2.0 * m * n * k)
-            ms = time_ms(lambda: kern(x, *consts, **kw), flush)
-            pms = time_ms(lambda: plain(x, *consts, **kw), flush)
-            rows.append(dict(kernel=name, shape=f"M={m},K={k},N={n},w{bits}{',relu' if relu else ''}",
-                             ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
-            log(f"  {name:15s} M={m:4d} K={k} N={n} w{bits}: exact, {ms:.4f} ms "
-                f"(plain {pms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+            _check_matmul(rng, device, flush, rows, worst, m, k, n, bits, relu)
+    for k in EDGE_K:
+        for bits in (8, 4):
+            for m in EDGE_M:
+                _check_matmul(rng, device, flush, rows, worst, m, k, EDGE_N, bits, False)
+    for m, k, n in CONV_GEMMS:
+        _check_matmul(rng, device, flush, rows, worst, m, k, n, 8, True, tag=",conv")
+
+    for m, n in LUT_SHAPES:
+        x = torch.from_numpy(_int8(rng, (m, n))).to(device)
+        for dt in ("int8", "uint8"):
+            info = np.iinfo(dt)
+            lut = torch.from_numpy(rng.integers(info.min, info.max + 1, (256,)).astype(dt)).to(device)
+            _check_lut(flush, rows, worst, x, lut, f"M={m},N={n},{dt}")
+    # a base one byte into a larger tensor: the head loop and byte stores
+    big = torch.from_numpy(_int8(rng, (37 * 2051 + 1,))).to(device)
+    lut = torch.from_numpy(rng.integers(0, 256, (256,)).astype(np.uint8)).to(device)
+    _check_lut(flush, rows, worst, big[1:].view(37, 2051), lut, "M=37,N=2051,uint8,offset1")
 
     lut = torch.from_numpy(build_exp_lut()).to(device)
     scal = dict(qk_scale=float(np.float32(0.05 * 0.05 / np.sqrt(128))), big=ATTN_BIG,
                 lut_scale=ATTN_LUT_SCALE, p_scale=ATTN_P_SCALE, rescale=float(np.float32(1 / ATTN_P_SCALE)))
     b, dh = 4, 128
     for s, t in ATTN_SHAPES:
-        q = torch.from_numpy(rng.integers(-128, 128, (b, s, dh)).astype(np.int8)).to(device)
-        kk = torch.from_numpy(rng.integers(-128, 128, (b, t, dh)).astype(np.int8)).to(device)
-        v = torch.from_numpy(rng.integers(-128, 128, (b, t, dh)).astype(np.int8)).to(device)
+        q = torch.from_numpy(_int8(rng, (b, s, dh))).to(device)
+        kk = torch.from_numpy(_int8(rng, (b, t, dh))).to(device)
+        v = torch.from_numpy(_int8(rng, (b, t, dh))).to(device)
         if s == 1:  # decode: keys up to a per-row position are valid
             pos = rng.integers(0, t, (b,))
             mk = (np.arange(t)[None, None, :] <= pos[:, None, None]).astype(np.float32)
         else:  # prefill: causal over a right-aligned window
             mk = np.broadcast_to(np.tril(np.ones((s, t), np.float32), t - s), (b, s, t)).copy()
         mask = torch.from_numpy(mk).to(device)
-        got = qatt.qattention(q, kk, v, mask, lut, **scal)
-        want = qatt.qattention_plain(q, kk, v, mask, lut, **scal)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        err = _max_err(qatt.qattention(q, kk, v, mask, lut, **scal),
+                       qatt.qattention_plain(q, kk, v, mask, lut, **scal))
         worst["qattention"] = max(worst["qattention"], err)
         if err:
             raise AssertionError(f"qattention B={b} S={s} T={t}: max |kernel - plain| = {err}")
@@ -177,7 +252,7 @@ def check_kernels(device, flush, rows):
         rows.append(dict(kernel="qattention", shape=f"B={b},S={s},T={t},dh={dh}",
                          ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
         log(f"  qattention      B={b} S={s:3d} T={t:3d} dh={dh}: exact, {ms:.4f} ms "
-            f"(plain {pms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+            f"(plain {pms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
     return worst
 
 
@@ -291,6 +366,234 @@ def run_slice(device):
     return perf, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: compiled models served by CompiledModelServer
+# ---------------------------------------------------------------------------
+
+#: Slice A: the FFN widths of src/repro/configs/qwen3_1_7b.py as the paper's
+#: §4/§6 MLP (Tanh, Sigmoid, no activation); requests arrive in waves.
+MLP_WIDTHS = (2048, 6144, 6144, 2048)
+MLP_WAVES, MLP_MAX_BATCH, MLP_REF_SAMPLE = (3, 1, 17, 9, 64, 2, 32), 64, 16
+#: Slice B: (out channels, in channels, kernel, stride, pad) of each conv —
+#: ResNet-18's stage widths, its 7×7/2 stem — then a 25088 → 1000 FC head.
+CNN_CONVS = [(64, 3, 7, 2, 3), (128, 64, 3, 2, 1), (256, 128, 3, 2, 1),
+             (512, 256, 3, 2, 1), (512, 512, 3, 2, 1)]
+CNN_IN, CNN_CLASSES = (3, 224, 224), 1000
+CNN_WAVES, CNN_MAX_BATCH, CNN_REF_SAMPLE = (1, 7, 16, 3, 13), 16, 2
+#: The counted serving window lasts at least this long: the waves repeat in
+#: rounds over the same requests until it has passed.
+MIN_WINDOW_S = 1.0
+
+
+def build_mlp():
+    """quantize_mlp (Fig 5 fp16 tanh flow, Fig 6 sigmoid, per-channel) from
+    seed-0 weights scaled by 1/sqrt(fan_in) and 256 calibration rows."""
+    import numpy as np
+
+    from repro_torch.core import quant
+    from repro_torch.core.toolchain import MLPSpec, quantize_mlp
+
+    rng = np.random.default_rng(0)
+    pairs = list(zip(MLP_WIDTHS, MLP_WIDTHS[1:]))
+    spec = MLPSpec(
+        weights=[rng.standard_normal((a, b), np.float32) / np.float32(np.sqrt(a)) for a, b in pairs],
+        biases=[rng.standard_normal((b,), np.float32) * np.float32(0.1) for _, b in pairs],
+        activations=["Tanh", "Sigmoid", None],
+    )
+    calib = rng.standard_normal((256, MLP_WIDTHS[0]), np.float32)
+    model = quantize_mlp(spec, calib, tanh_mode="fp16", per_channel=True, name="paper_mlp")
+    x = rng.standard_normal((sum(MLP_WAVES), MLP_WIDTHS[0]), np.float32)
+    return model, list(quant.quantize(x, float(model.metadata["input_scale"]), "int8"))
+
+
+def build_cnn():
+    """quantize_cnn (ConvInteger chains with ReLU, per-channel) from seed-0
+    weights scaled by 1/sqrt(fan_in) and 8 calibration images."""
+    import numpy as np
+
+    from repro_torch.core import quant
+    from repro_torch.core.toolchain import CNNSpec, ConvLayerSpec, MLPSpec, quantize_cnn
+
+    rng = np.random.default_rng(0)
+    convs = []
+    for m, c, k, st, pd in CNN_CONVS:
+        w = rng.standard_normal((m, c, k, k), np.float32) / np.float32(np.sqrt(c * k * k))
+        convs.append(ConvLayerSpec(w, rng.standard_normal((m,), np.float32) * np.float32(0.1),
+                                   strides=(st, st), pads=(pd,) * 4, activation="Relu"))
+    side = CNN_IN[1]
+    for _, _, k, st, pd in CNN_CONVS:
+        side = (side + 2 * pd - k) // st + 1
+    flat = CNN_CONVS[-1][0] * side * side
+    head = MLPSpec([rng.standard_normal((flat, CNN_CLASSES), np.float32) / np.float32(np.sqrt(flat))],
+                   [rng.standard_normal((CNN_CLASSES,), np.float32) * np.float32(0.1)], [None])
+    calib = rng.standard_normal((8,) + CNN_IN, np.float32)
+    model = quantize_cnn(CNNSpec(convs, head), calib, per_channel=True, name="paper_cnn")
+    x = rng.standard_normal((sum(CNN_WAVES),) + CNN_IN, np.float32)
+    return model, list(quant.quantize(x, float(model.metadata["input_scale"]), "int8"))
+
+
+def _serve(cm, examples, waves, max_batch, min_s=0.0):
+    """One server, the waves submitted in turn, each drained before the
+    next arrives; the whole sequence in rounds over the same examples until
+    ``min_s`` seconds have passed (one round at least).  Outputs reach the
+    host inside step(), so the wall time covers the device work.  Returns
+    the requests, ``summary()``, the wall seconds and the rounds."""
+    from repro_torch.serving import CompiledModelServer, CompiledServerConfig
+
+    srv = CompiledModelServer(cm, CompiledServerConfig(max_batch=max_batch))
+    reqs, rounds = [], 0
+    t = time.perf_counter()
+    while rounds == 0 or time.perf_counter() - t < min_s:
+        it = iter(examples)
+        for w in waves:
+            reqs += [srv.submit(next(it)) for _ in range(w)]
+            srv.run_until_drained()
+        rounds += 1
+    return reqs, srv.summary(), time.perf_counter() - t, rounds
+
+
+def _batch_ms(cm, examples, max_batch, reps=7) -> float:
+    """Median host-clock ms of one synchronised forward at the largest
+    bucket (``max_batch`` requests)."""
+    import numpy as np
+    import torch
+
+    feeds = {cm.input_names[0]: np.stack(examples[:max_batch])}
+    cm.run(feeds)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cm.run(feeds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def device_breakdown(cm, examples, max_batch, top=6):
+    """Device time of one forward at the largest bucket, summed by kernel
+    name from a ``torch.profiler`` trace: ``(total_ms, [(name, ms, calls)])``,
+    or None when the profiler records no device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    feeds = {cm.input_names[0]: np.stack(examples[:max_batch])}
+    cm.run(feeds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cm.run(feeds)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in evs), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def run_served(device, name, build, waves, max_batch, n_ref, want_stats, per_batch):
+    """Build the artifact, compile it batch-polymorphic on backends cuda and
+    ref, serve the waves on each (one round to warm up, then the counted
+    window of at least MIN_WINDOW_S), require every response identical to the ref
+    server's for the same example and the first ``n_ref`` equal to the numpy
+    ReferenceRuntime.  ``per_batch`` is each kernel's launches per forward;
+    the counted run must show exactly that times the batches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.compile import compile_model
+    from repro_torch.core.runtime import ReferenceRuntime
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    model, examples = build()
+    t_build = time.perf_counter() - t0
+    cms, compile_s = {}, {}
+    for b in ("cuda", "ref"):
+        t = time.perf_counter()
+        cms[b] = compile_model(model, backend=b, device=device, batch="dynamic")
+        compile_s[b] = time.perf_counter() - t
+        got = {k: cms[b].stats[k] for k in want_stats}
+        if got != want_stats:
+            raise AssertionError(f"{name} {b}: fused stats {got}, want {want_stats}")
+    log(f"  quantize (toolchain, host) {t_build:.1f} s; compile cuda {compile_s['cuda']:.2f} s, "
+        f"ref {compile_s['ref']:.2f} s; stats {cms['cuda'].stats}")
+
+    _serve(cms["cuda"], examples, waves, max_batch)  # warm: first launches, specializations
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    got, summ, wall, rounds = _serve(cms["cuda"], examples, waves, max_batch, MIN_WINDOW_S)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    reset_launch_counts()
+    _serve(cms["ref"], examples, waves, max_batch)
+    want, ref_summ, ref_wall, ref_rounds = _serve(cms["ref"], examples, waves, max_batch, MIN_WINDOW_S)
+    if any(launch_counts().values()):
+        raise AssertionError(f"{name}: the ref backend launched kernels: {launch_counts()}")
+
+    out = cms["cuda"].output_names[0]
+    batches, n = summ["batches"], len(examples)
+    served = (batches / rounds, summ["completed"], ref_summ["completed"])
+    if served != (ref_summ["batches"] / ref_rounds, rounds * n, ref_rounds * n):
+        raise AssertionError(f"{name}: served {summ['completed']} in {batches} batches over "
+                             f"{rounds} rounds, ref {ref_summ['completed']} in "
+                             f"{ref_summ['batches']} over {ref_rounds}")
+    for i, a in enumerate(got):  # each response against the ref's for its example
+        ga, gb = a.outputs[out], want[i % n].outputs[out]
+        if ga.dtype != gb.dtype or ga.shape != gb.shape or not np.array_equal(ga, gb):
+            raise AssertionError(f"{name} request {i}: backends cuda and ref disagree")
+    for i, b in enumerate(want[n:], n):  # the ref server's later rounds repeat its first
+        if not np.array_equal(b.outputs[out], want[i % n].outputs[out]):
+            raise AssertionError(f"{name} ref request {i}: differs from its first round")
+    if len(np.unique(np.stack([r.outputs[out] for r in got]))) < 2:
+        raise AssertionError(f"{name}: every response holds one code — a degenerate pipeline")
+    rt = ReferenceRuntime(model)
+    sample = np.stack([r.x for r in got[:n_ref]])
+    ref_out = rt.run({cms["cuda"].input_names[0]: sample})[out]
+    if not np.array_equal(np.stack([r.outputs[out] for r in got[:n_ref]]), ref_out):
+        raise AssertionError(f"{name}: the first {n_ref} responses differ from ReferenceRuntime")
+    expect = {k: v * batches for k, v in per_batch.items()}
+    path = {k: launches[k] for k in expect}
+    if path != expect or any(v <= 0 for v in path.values()):
+        raise AssertionError(f"{name}: launches {launches}, want {expect} over {batches} batches")
+    if any(v for k, v in launches.items() if k not in expect):
+        raise AssertionError(f"{name}: kernels off this path launched: {launches}")
+    log(f"  {len(got)} requests: {rounds} rounds of waves {waves} in {wall:.3f} s, {batches} "
+        f"batches {summ['bucket_batches']}: cuda == ref bit for bit; first {n_ref} == "
+        f"ReferenceRuntime (ref: {len(want)} requests, {ref_rounds} rounds in {ref_wall:.3f} s)")
+    perf = dict(
+        compile_s=compile_s["cuda"], ref_compile_s=compile_s["ref"], quantize_s=t_build,
+        rounds=rounds, requests=len(got), window_s=wall, ref_rounds=ref_rounds,
+        ref_window_s=ref_wall,
+        requests_per_s=len(got) / wall, ref_requests_per_s=len(want) / ref_wall,
+        p50_ms=summ["latency_p50_ms"], p95_ms=summ["latency_p95_ms"],
+        batch_ms=_batch_ms(cms["cuda"], examples, max_batch),
+        ref_batch_ms=_batch_ms(cms["ref"], examples, max_batch),
+        peak_bytes=peak, batches=batches, bucket_batches=summ["bucket_batches"],
+        device=device_breakdown(cms["cuda"], examples, max_batch),
+    )
+    return perf, launches
+
+
+def _perf_line(name, perf, card, max_batch, extra=""):
+    log(f"  {name}: compile {perf['compile_s']:.2f} s; {perf['requests_per_s']:.1f} requests/s "
+        f"over {perf['window_s']:.2f} s (ref {perf['ref_requests_per_s']:.1f} over "
+        f"{perf['ref_window_s']:.2f} s); latency p50 {perf['p50_ms']:.2f} ms, p95 "
+        f"{perf['p95_ms']:.2f} ms; batch of {max_batch} {perf['batch_ms']:.2f} ms (ref "
+        f"{perf['ref_batch_ms']:.2f} ms); peak allocated {perf['peak_bytes'] / 2**30:.2f} GiB"
+        f"{extra}  ({card})")
+    if perf["device"] is None:
+        log(f"  {name} device time by kernel at batch {max_batch}: not measured "
+            "(the profiler recorded no device time)")
+        return
+    total, top = perf["device"]
+    log(f"  {name} device time of one forward at batch {max_batch} (torch.profiler): "
+        f"{total:.4f} ms of the {perf['batch_ms']:.4f} ms forward; by kernel:")
+    for key, ms, calls in top:
+        log(f"    {ms:9.4f} ms  x{calls:<3d} {key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -298,69 +601,110 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
+    # every plain version contracts in float64; state the float32 settings too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/5] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/7] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/5] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/7] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/5] kernels against their plain versions (tolerance 0)")
+    log("[3/7] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/5] slice: compiled token path, backend cuda vs backend ref  ({card})")
-    perf, launches = run_slice(device)
+    log(f"[4/7] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    perf, launches_tok = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
         f"{perf['engine_tokens_per_s']:.1f} tokens/s; peak allocated "
         f"{perf['peak_bytes'] / 2**30:.2f} GiB  ({card})")
     log(f"  ref backend on the card: prefill {perf['ref_prefill_ms']:.2f} ms, decode step "
         f"{perf['ref_decode_step_ms']:.2f} ms")
-    log(f"  launches on the slice phase: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    log(f"  launches on the token path: {launches_tok}")
+    missing = [k for k in ("qmatmul", "qmatmul_packed", "qattention") if launches_tok[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the token path: {missing}")
+
+    log(f"[5/7] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+        f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
+    perf_a, launches_a = run_served(
+        device, "slice A", build_mlp, MLP_WAVES, MLP_MAX_BATCH, MLP_REF_SAMPLE,
+        {"fused_lut": 2, "fused_qlinear": 3}, {"qmatmul": 3, "qact_lut": 2},
+    )
+    _perf_line("slice A", perf_a, card, MLP_MAX_BATCH)
+    log(f"  launches on slice A: {launches_a}")
+
+    log(f"[6/7] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+        f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
+        f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
+    perf_b, launches_b = run_served(
+        device, "slice B", build_cnn, CNN_WAVES, CNN_MAX_BATCH, CNN_REF_SAMPLE,
+        {"fused_qconv": len(CNN_CONVS), "fused_qlinear": 1}, {"qmatmul": len(CNN_CONVS) + 1},
+    )
+    perf_b["conv_steps_on_qmatmul"] = perf_b["batches"] * len(CNN_CONVS)
+    _perf_line("slice B", perf_b, card, CNN_MAX_BATCH,
+               f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
+    log(f"  launches on slice B: {launches_b}")
+
+    launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
+                for k in worst}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
-    # at the decode shapes (qattention: one launch per head)
-    def decode_sum(kernel, shapes, mult=1):
+    # at the decode shapes (qattention: one launch per head); qact_lut: the
+    # two LUT layers of one slice-A forward at its largest bucket
+    def summed(kernel, shapes, mult=1):
         sel = [r for r in rows if r["kernel"] == kernel and r["shape"] in shapes]
-        return {f: mult * sum(r[f] for r in sel) for f in ("ms", "plain_ms", "bound_ms")}, sel
+        if len(sel) != len(shapes):
+            raise AssertionError(f"{kernel}: rows {sorted(shapes)} missing")
+        tot = {f: mult * sum(r[f] for r in sel) for f in ("ms", "plain_ms", "bound_ms")}
+        tot["library_ms"] = (mult * sum(r["library_ms"] for r in sel)
+                             if all("library_ms" in r for r in sel) else None)
+        return tot, sel
 
     summaries = {
-        "qmatmul": decode_sum("qmatmul", {f"M={DECODE_M},K=2048,N=2048,w8", f"M={DECODE_M},K=2048,N=6144,w8,relu"}),
-        "qmatmul_packed": decode_sum("qmatmul_packed", {f"M={DECODE_M},K=2048,N=6144,w4", f"M={DECODE_M},K=6144,N=2048,w4"}),
-        "qattention": decode_sum("qattention", {"B=4,S=1,T=512,dh=128"}, mult=16),
+        "qmatmul": summed("qmatmul", {f"M={DECODE_M},K=2048,N=2048,w8", f"M={DECODE_M},K=2048,N=6144,w8,relu"}),
+        "qmatmul_packed": summed("qmatmul_packed", {f"M={DECODE_M},K=2048,N=6144,w4", f"M={DECODE_M},K=6144,N=2048,w4"}),
+        "qattention": summed("qattention", {"B=4,S=1,T=512,dh=128"}, mult=16),
+        "qact_lut": summed("qact_lut", {f"M={MLP_MAX_BATCH},N=6144,int8", f"M={MLP_MAX_BATCH},N=6144,uint8"}),
     }
     sources = {
         "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:217"),
         "qmatmul_packed": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:170"),
         "qattention": ("src/repro_torch/kernels/csrc/qattention.cu", "src/repro/kernels/qattention.py:105"),
+        "qact_lut": ("src/repro_torch/kernels/csrc/qact_lut.cu", "src/repro/kernels/qact_lut.py:57"),
     }
     kernels = []
     for name, (tot, sel) in summaries.items():
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was launched no time on the main paths")
         b_by = "bytes" if all(r["bound_by"] == "bytes" for r in sel) else "operations"
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
             "launches": launches[name], "max_abs_err": worst[name],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, "library_ms": tot["library_ms"],
         })
-    log("[5/5] summary: ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) "
-        "(qattention: 16 head launches); library_ms is null: no single PyTorch call computes "
-        "either fused function (int8 matmul + bias + two-Mul rescale + requant; the LUT-softmax "
-        "attention region)")
+    log("[7/7] summary: launches are summed over the counted runs of phases 4-6; "
+        "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
+        "kernels and qattention (16 head launches), and per slice-A forward at batch "
+        f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers); library_ms is torch.take for "
+        "qact_lut (int64 indices made beforehand) and null for the others: no single "
+        "PyTorch call computes either fused function")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "n_layers": N_LAYERS, "rows": rows, "slice": perf, "launches": launches,
-                   "kernels": kernels}, f, indent=1)
+                   "n_layers": N_LAYERS, "rows": rows, "slice": perf, "slice_a": perf_a,
+                   "slice_b": perf_b, "launches": {"token_path": launches_tok, "slice_a": launches_a,
+                                                   "slice_b": launches_b},
+                   "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

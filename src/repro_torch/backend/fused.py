@@ -9,10 +9,12 @@
 * ``qattention`` — the fused int8 attention region.  ``ref`` runs the plain
   oracle; ``cuda`` runs :mod:`repro_torch.kernels.qattention`.  Scalar
   constants ride in ``step.params``; the exp LUT is the one const tensor.
-* ``qact_lut`` and ``qlinear_conv2d`` — the exact 256-entry activation
-  table and the fused int8 convolution, ``ref`` only: their kernels are not
-  ported, so a graph that fuses either raises ``UnknownKernelError`` on
-  ``cuda`` when it is compiled.
+* ``qact_lut`` — the exact 256-entry activation table.  ``ref`` runs the
+  plain gather; ``cuda`` runs :mod:`repro_torch.kernels.qact_lut`.
+* ``qlinear_conv2d`` — the fused int8 convolution.  ``ref`` runs the plain
+  oracle (an exact float64 ``F.conv2d``) on unpadded parameters; ``cuda``
+  runs im2col and then the qmatmul kernel with its epilogue, on the
+  template's K-contiguous ``(Np, C·kH·kW → Kp)`` weight.
 
 On a CPU tensor every ``cuda`` kernel wrapper runs its plain version — that
 is how the CPU tests exercise the planned path; on a CUDA tensor it launches
@@ -25,8 +27,6 @@ offset the plan already folded into the bias.
 """
 from __future__ import annotations
 
-import torch
-
 from ..kernels import ops as kops
 from ..kernels import qattention as _qatt
 from ..kernels import ref as _ref
@@ -36,9 +36,7 @@ from .registry import register
 
 def _as_signed(x, params):
     """uint8 activation → signed int8 (bias correction already folded)."""
-    if params.get("x_uint8"):
-        return (x.to(torch.int32) - 128).to(torch.int8)
-    return x
+    return kops.shift_uint8(x) if params.get("x_uint8") else x
 
 
 def _unbound(kind: str):
@@ -113,11 +111,29 @@ def _qact_lut_ref(step, args):
     return [_ref.qact_lut_ref(args[0], lut)]
 
 
+@register("qact_lut", backend="cuda")
+def _qact_lut_cuda(step, args):
+    (lut,) = step.consts
+    return [kops.quantized_activation(args[0], lut)]
+
+
 @register("qlinear_conv2d", backend="ref")
 def _qlinear_conv2d_ref(step, args):
     w, b, qs, qsh = step.consts
     p = step.params
     return [_ref.qconv2d_ref(
         args[0], w, b, qs, qsh, strides=p["strides"], pads=p["pads"],
+        out_dtype=TORCH_DTYPES[p["out_dtype"]], relu=p["relu"], two_mul=p["two_mul"],
+    )]
+
+
+@register("qlinear_conv2d", backend="cuda")
+def _qlinear_conv2d_cuda(step, args):
+    p = step.params
+    if p.get("dynamic_batch"):
+        raise _unbound("conv")
+    w2, b2, qs2, qsh2 = step.consts
+    return [kops.quantized_conv2d_planned(
+        args[0], w2, b2, qs2, qsh2, p["shape"],
         out_dtype=TORCH_DTYPES[p["out_dtype"]], relu=p["relu"], two_mul=p["two_mul"],
     )]

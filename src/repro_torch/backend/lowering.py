@@ -200,7 +200,8 @@ def specialize_plan(
     a bare int is PR 4 sugar for ``{"N": int}``.  This is the *late* half of
     shape specialization: for every fused-qmatmul step carrying an axis-open
     shape record the flat M and the bm tile are computed from the bound lead
-    dims (:func:`repro_torch.kernels.ops.bind_qmatmul_axes`), and every value's
+    dims (:func:`repro_torch.kernels.ops.bind_qmatmul_axes`) — a conv step's
+    record has lead ``(N, OH, OW)``, so its GEMM M is N_bucket·OH·OW — and every value's
     symbolic dims are substituted in ``out_info`` so the specialized plan
     renders fully concrete.  Everything else — steps, slots, liveness,
     padded parameter tensors on the device — is shared with the template
@@ -259,6 +260,8 @@ def specialize_plan(
                         f"{k}={shape[k]}" for k in ("b", "s", "t", "dh")
                     )
             elif params.get("dynamic_batch"):
+                # qlinear_matmul and qlinear_conv2d (im2col onto qmatmul):
+                # the same record, the same binder, the template's tensors
                 if remaining:
                     params = dict(params)
                     params["shape"] = kops.bind_qmatmul_axes(

@@ -8,13 +8,14 @@ The flow is ``repro``'s, level for level:
    Q/DQ cancellation); bit-exact, and the caller's artifact is cloned.
 2. **Fuse** — declarative chain patterns (QLINEAR / GEMM / LUT) and the
    programmatic attention-region matcher collapse the paper's op chains
-   into ``qlinear_matmul`` / ``qattention`` / ``qact_lut`` steps.
+   into ``qlinear_matmul`` / ``qlinear_conv2d`` / ``qattention`` /
+   ``qact_lut`` steps.
 3. **Lower** — drafts become a liveness-planned :class:`ExecutionPlan`.
    Every array constant (weights, bias, scales, LUTs, embeddings) moves to
    the plan's device **once**, here; shape-parameter constants (Slice
    bounds, Reshape targets) stay host integers.  On the ``cuda`` backend the
-   matmul parameters are padded, laid out K-contiguous and int4-packed at
-   this point, once per template.
+   matmul and conv parameters are padded, laid out K-contiguous and (matmul)
+   int4-packed at this point, once per template.
 4. **Specialize (late)** — with ``dynamic_axes`` the plan is a template over
    named axes, bound per (batch × sequence) bucket through a bounded
    :class:`PlanCache`; specializations share the template's device tensors.
@@ -23,9 +24,7 @@ Execution is eager: ``jax.jit`` in the reference becomes a direct call of
 ``plan.execute``.  Backends are ``"ref"`` (plain torch oracles on unpadded
 parameters) and ``"cuda"`` (the planned path through the CUDA kernels, whose
 wrappers run the plain version only for CPU tensors).  Anything unmatched
-falls back to the generic torch op table, so every valid artifact compiles —
-except one needing a kernel not yet ported (``qact_lut`` and
-``qlinear_conv2d`` on ``cuda``), which raises ``UnknownKernelError``.
+falls back to the generic torch op table, so every valid artifact compiles.
 """
 from __future__ import annotations
 
@@ -287,6 +286,8 @@ def _build_qlinear(compiler: "Compiler", m: Match) -> Optional[StepDraft]:
         if weight_bits != 8:
             # conv has no packed lane — the bitwidth still renders in the plan
             params["weight_bits"] = weight_bits
+        if compiler.backend == "cuda":
+            return _build_qconv_planned(compiler, m, w, b, qs, qsh, params)
         consts = (
             _dev(compiler, w),
             None if b is None else _dev(compiler, b),
@@ -340,6 +341,38 @@ def _build_qlinear(compiler: "Compiler", m: Match) -> Optional[StepDraft]:
     return StepDraft(
         "qlinear_matmul", [tensor_arg(x_name)], [m.out_tensor],
         params=params, consts=consts, kind="fused_qlinear", name=core.name,
+    )
+
+
+def _build_qconv_planned(compiler: "Compiler", m: Match, w, b, qs, qsh, params) -> StepDraft:
+    """The ``cuda`` conv step: im2col onto the qmatmul kernel.  The weight
+    is laid out as the ``(M, C·kH·kW)`` GEMM weight and a uint8 input's
+    ``128·Σw`` folds into the bias, once per template.  The shape record's
+    ``lead`` is ``(N, OH, OW)`` — the GEMM's M — so the matmul binder closes
+    it per batch bucket (M = N_bucket·OH·OW) and chooses bm from it."""
+    ga = compiler.analysis
+    x_name = m.anchor.inputs[0]
+    x_uint8 = ga.dtype(x_name) == "uint8"
+    consts, shape = kops.template_qconv_params(
+        w, b, qs, np.asarray(qsh, np.float32), strides=params["strides"],
+        pads=params["pads"], x_uint8=x_uint8, device=compiler.device,
+    )
+    xs = ga.shape(x_name)
+    if xs is not None and len(xs) == 4:
+        oh, ow = kops.conv_out_hw(xs[2], xs[3], shape["kh"], shape["kw"],
+                                  shape["strides"], shape["pads"])
+        lead = (xs[0], oh, ow)
+    else:
+        lead = None  # unknown input shape: M stays unknown, bm its default
+    if compiler.batch == "dynamic":
+        shape["lead"] = lead
+        params["shape"] = shape
+        params["dynamic_batch"] = True
+    else:
+        params["shape"] = kops.bind_qmatmul_axes({**shape, "lead": lead}, None)
+    return StepDraft(
+        "qlinear_conv2d", [tensor_arg(x_name)], [m.out_tensor],
+        params=params, consts=consts, kind="fused_qconv", name=m.anchor.name,
     )
 
 
@@ -919,6 +952,11 @@ class CompiledModel:
                     if pos:
                         by_input[t.name] = pos
                 self.axis_input_positions[axis] = by_input
+            # the first position of each, as the compiled-model server reads it
+            self.axis_input_pos: Dict[str, Dict[str, int]] = {
+                axis: {name: pos[0] for name, pos in by_input.items()}
+                for axis, by_input in self.axis_input_positions.items()
+            }
             # axis-carrying outputs get sliced back to the true extents;
             # positions come from the declared signature with the plan's
             # inferred value shapes as fallback, so an output mis-declared
@@ -939,12 +977,18 @@ class CompiledModel:
                         by_axis[axis] = pos
                 if by_axis:
                     self.output_axis_positions[t.name] = by_axis
+            self.output_axis_pos: Dict[str, Dict[str, int]] = {
+                name: {axis: pos[0] for axis, pos in by_axis.items()}
+                for name, by_axis in self.output_axis_positions.items()
+            }
         else:
             self._shared_cache = False
             self.plan_cache = None
             self.dynamic_axes = {}
             self.axis_input_positions = {}
+            self.axis_input_pos = {}
             self.output_axis_positions = {}
+            self.output_axis_pos = {}
 
     @property
     def backend(self) -> str:

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-STEMS = ("qmatmul", "qattention")
+STEMS = ("qmatmul", "qattention", "qact_lut")
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[tuple, object] = {}

@@ -21,6 +21,13 @@
 //   * the epilogue runs on the int32 accumulator in registers — the
 //     Cast/Mul/Mul/QuantizeLinear chain never round-trips to device memory.
 //
+// Any K and any alignment of x: x is staged as 32-bit words, read whole when
+// K % 4 == 0 and x is 4-byte aligned, else assembled byte by byte (the conv
+// route's im2col rows have K = C*kH*kW, e.g. 147 for a 7x7 RGB stem).  The
+// bytes beyond K read as zero either way, so the int32 sum is the same.  The
+// choice is a template parameter, so the word path compiles as it did
+// before the byte path existed.
+//
 // Exactness: the int32 sum is order-independent; the epilogue uses the
 // IEEE round-to-nearest intrinsics (__int2float_rn, __fmul_rn) and rintf, so
 // no mul+add can contract into an FMA, in the codified op order.
@@ -36,12 +43,32 @@ constexpr int LDS = KW + 1;   // padded row stride (words) against bank conflict
 constexpr int THREADS = 256;  // (BN / TN) x (BM / TM)
 constexpr int TN = 4;         // columns per thread: tx + 16 * j
 
+// Word gk (k = 4*gk .. 4*gk+3) of x row gm, zero beyond the ragged M and K
+// edges.  WORDS: K % 4 == 0 and x 4-byte aligned, so the word is one load.
+template <bool WORDS>
+__device__ __forceinline__ unsigned x_word(const int8_t* __restrict__ x, int gm,
+                                           int gk, int M, int K) {
+  if (gm >= M) return 0u;
+  if (WORDS)
+    return gk < K / 4
+               ? reinterpret_cast<const unsigned*>(x)[(size_t)gm * (K / 4) + gk]
+               : 0u;
+  const uint8_t* row = reinterpret_cast<const uint8_t*>(x) + (size_t)gm * K;
+  unsigned v = 0u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int k = 4 * gk + b;
+    if (k < K) v |= (unsigned)row[k] << (8 * b);
+  }
+  return v;
+}
+
 // Sign-extend the four 4-bit values held in the low nibbles of each byte.
 __device__ __forceinline__ int sext_nibbles(unsigned v) {
   return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);
 }
 
-template <int BM, int TM, bool PACKED>
+template <int BM, int TM, bool PACKED, bool WORDS>
 __global__ void __launch_bounds__(THREADS)
 qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
                const int* __restrict__ bias, const float* __restrict__ qs,
@@ -56,7 +83,6 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   const int ty = tid / (BN / TN);  // 0..BM/TM-1
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int kwords = K / 4;  // words of one x row (K % 4 == 0, checked by the wrapper)
 
   int acc[TM][TN];
 #pragma unroll
@@ -64,7 +90,6 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
 
-  const int* xw = reinterpret_cast<const int*>(x);
   const unsigned* wwords = reinterpret_cast<const unsigned*>(w);
 
   for (int k0 = 0; k0 < Kp; k0 += BK) {
@@ -73,8 +98,7 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
       // x tile: BM rows x KW words, zero beyond the ragged M and K edges
       for (int e = tid; e < BM * KW; e += THREADS) {
         const int r = e / KW, c = e % KW;
-        const int gm = m0 + r, gk = kw0 + c;
-        xs[r][c] = (gm < M && gk < kwords) ? xw[(size_t)gm * kwords + gk] : 0;
+        xs[r][c] = (int)x_word<WORDS>(x, m0 + r, kw0 + c, M, K);
       }
       // W tile: BN rows (output columns) x KW words of the (Np, Kp) weight
       for (int e = tid; e < BN * KW; e += THREADS) {
@@ -89,11 +113,8 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
       for (int e = tid; e < BM * (KW / 2); e += THREADS) {
         const int r = e / (KW / 2), q = e % (KW / 2);
         const int gm = m0 + r, gk = kw0 + 2 * q;
-        unsigned a = 0, b = 0;
-        if (gm < M) {
-          if (gk < kwords) a = (unsigned)xw[(size_t)gm * kwords + gk];
-          if (gk + 1 < kwords) b = (unsigned)xw[(size_t)gm * kwords + gk + 1];
-        }
+        const unsigned a = x_word<WORDS>(x, gm, gk, M, K);
+        const unsigned b = x_word<WORDS>(x, gm, gk + 1, M, K);
         xs[r][2 * q] = (int)__byte_perm(a, b, 0x6420);
         xs[r][2 * q + 1] = (int)__byte_perm(a, b, 0x7531);
       }
@@ -141,20 +162,29 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
+template <int BM, int TM, bool PACKED, bool WORDS>
+void launch_one(dim3 grid, cudaStream_t stream, const void* x, const void* w,
+                const void* bias, const void* qs, const void* qsh, void* out,
+                int M, int K, int N, int Kp, int relu, int two_mul,
+                int out_uint8) {
+  qmatmul_kernel<BM, TM, PACKED, WORDS><<<grid, THREADS, 0, stream>>>(
+      (const int8_t*)x, (const uint8_t*)w, (const int*)bias, (const float*)qs,
+      (const float*)qsh, (uint8_t*)out, M, K, N, Kp, relu, two_mul, out_uint8);
+}
+
 template <int BM, int TM>
 cudaError_t launch(bool packed, const void* x, const void* w, const void* bias,
                    const void* qs, const void* qsh, void* out, int M, int K,
                    int N, int Kp, int Np, int relu, int two_mul, int out_uint8,
                    cudaStream_t stream) {
   dim3 grid(Np / BN, (M + BM - 1) / BM);
-  if (packed)
-    qmatmul_kernel<BM, TM, true><<<grid, THREADS, 0, stream>>>(
-        (const int8_t*)x, (const uint8_t*)w, (const int*)bias, (const float*)qs,
-        (const float*)qsh, (uint8_t*)out, M, K, N, Kp, relu, two_mul, out_uint8);
-  else
-    qmatmul_kernel<BM, TM, false><<<grid, THREADS, 0, stream>>>(
-        (const int8_t*)x, (const uint8_t*)w, (const int*)bias, (const float*)qs,
-        (const float*)qsh, (uint8_t*)out, M, K, N, Kp, relu, two_mul, out_uint8);
+  const bool words = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+#define REPRO_QMM_ARGS grid, stream, x, w, bias, qs, qsh, out, M, K, N, Kp, relu, two_mul, out_uint8
+  if (packed && words) launch_one<BM, TM, true, true>(REPRO_QMM_ARGS);
+  else if (packed) launch_one<BM, TM, true, false>(REPRO_QMM_ARGS);
+  else if (words) launch_one<BM, TM, false, true>(REPRO_QMM_ARGS);
+  else launch_one<BM, TM, false, false>(REPRO_QMM_ARGS);
+#undef REPRO_QMM_ARGS
   return cudaGetLastError();
 }
 
@@ -162,14 +192,14 @@ cudaError_t launch(bool packed, const void* x, const void* w, const void* bias,
 
 // x (M, K) int8 row-major; w (Np, Kp) int8, or (Np, Kp/2) uint8 when packed;
 // bias (Np,) int32; qs, qsh (Np,) f32; out (M, N) int8/uint8 with N <= Np.
-// Kp % 64 == 0, Np % 64 == 0, K % 4 == 0, K <= Kp.  Returns cudaGetLastError().
+// Kp % 64 == 0, Np % 64 == 0, 1 <= K <= Kp.  Returns cudaGetLastError().
 extern "C" int repro_qmatmul(const void* x, const void* w, const void* bias,
                              const void* qs, const void* qsh, void* out, int M,
                              int K, int N, int Kp, int Np, int bm, int packed,
                              int relu, int two_mul, int out_uint8,
                              void* stream) {
   if (M <= 0) return (int)cudaSuccess;
-  if (Kp % BK || Np % BN || K % 4 || K > Kp || N > Np)
+  if (Kp % BK || Np % BN || K < 1 || K > Kp || N > Np)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bm == 16)

@@ -1,5 +1,6 @@
 """Plan-time half of the fused-kernel wrappers: parameter templates, per-axis
-binding of the shape records, and the planned matmul call.
+binding of the shape records, and the planned matmul, activation and conv
+calls.
 
 Handled here, once per template, so the kernels stay tile-pure:
 
@@ -10,7 +11,12 @@ Handled here, once per template, so the kernels stay tile-pure:
   CUDA kernel reads best: K-contiguous ``(Np, Kp)`` int8, or ``(Np, Kp // 2)``
   uint8 nibble pairs for 4-bit weights.  The shape record says so
   (``layout=nk``), so ``print(plan)`` shows it;
-* scalar vs per-channel rescales broadcast to padded ``(1, Np)`` rows.
+* scalar vs per-channel rescales broadcast to padded ``(1, Np)`` rows;
+* a convolution is a matmul over im2col rows: its ``(M, C, kH, kW)`` weight
+  is laid out as the ``(K = C·kH·kW, N = M)`` matmul weight, and a uint8
+  input's ``128·Σw`` over every tap folds into the bias.  That fold is exact
+  only if the padded taps of the *shifted* input read −128 (0 in uint8
+  space, as ONNX pads a zero point of 0), so im2col pads with −128 there.
 
 Every array lands on the plan's device here, once; a bucket specialization
 only binds M and the row tile, sharing these tensors.
@@ -21,8 +27,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import pack as _pack
+from . import qact_lut as _qact
 from . import qmatmul as _qmm
 
 
@@ -208,3 +216,99 @@ def quantized_matmul_planned(
         bm=shape["bm"],
     )
     return out.reshape(tuple(lead) + (n,))
+
+
+def shift_uint8(x_q: torch.Tensor) -> torch.Tensor:
+    """uint8 codes ``u`` as the int8 codes ``u - 128``, in one elementwise
+    pass: flipping the top bit and reading the byte as signed is exactly
+    that subtraction."""
+    return (x_q ^ 128).view(torch.int8)
+
+
+def quantized_activation(x_q: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """int8 LUT activation over any shape: a contiguous tensor is one flat
+    byte array to the kernel, so nothing is padded or reshaped."""
+    return _qact.qact_lut(x_q.contiguous(), lut)
+
+
+def conv_out_hw(h, w, kh: int, kw: int, strides, pads):
+    """Output height and width of a convolution; a dim that is not an int
+    (a named or unknown axis) stays as it is."""
+    oh = (h + pads[0] + pads[2] - kh) // strides[0] + 1 if isinstance(h, int) else h
+    ow = (w + pads[1] + pads[3] - kw) // strides[1] + 1 if isinstance(w, int) else w
+    return oh, ow
+
+
+def template_qconv_params(
+    w_q: np.ndarray,  # (M, C, kH, kW) int8
+    bias_q: Optional[np.ndarray],  # (M,) int32
+    quant_scale: np.ndarray,  # scalar or (M,) f32
+    quant_shift: np.ndarray,  # scalar or (M,) f32
+    *,
+    strides=(1, 1),
+    pads=(0, 0, 0, 0),
+    x_uint8: bool = False,
+    device="cpu",
+):
+    """The batch-independent half of the im2col conv: the weight reshaped to
+    ``(M, C·kH·kW)`` and laid out by :func:`template_qmatmul_params` as the
+    K-contiguous ``(Np, Kp)`` the qmatmul kernel reads (columns in (c, kh,
+    kw) order, as :func:`im2col` builds its rows); per-channel constants lie
+    along the output channel, the GEMM's N, and pass through as its
+    ``(1, Np)`` rows.  A uint8 input's ``128·Σw`` folds into the bias here,
+    once.  Returns ``(consts, shape)``; ``shape`` adds ``kh``, ``kw``,
+    ``strides``, ``pads`` and ``x_uint8`` to the matmul record."""
+    m, c, kh, kw = (int(d) for d in w_q.shape)
+    w2 = np.ascontiguousarray(np.asarray(w_q, np.int8).reshape(m, c * kh * kw).T)  # (K, M)
+    if x_uint8:
+        bias_q = fold_uint8_input(w2, bias_q)
+    consts, shape = template_qmatmul_params(w2, bias_q, quant_scale, quant_shift, device=device)
+    shape.update(kh=kh, kw=kw, strides=tuple(int(v) for v in strides),
+                 pads=tuple(int(v) for v in pads), x_uint8=bool(x_uint8))
+    return consts, shape
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, strides, pads, pad_value: int = 0) -> torch.Tensor:
+    """``(N, C, H, W)`` int8 → ``(N·OH·OW, C·kH·kW)`` int8 rows: rows in
+    (n, oh, ow) order, columns in (c, kh, kw) order.  ``pads`` is ONNX's
+    (top, left, bottom, right); the border reads ``pad_value``.  One
+    ``F.pad`` copy, a strided view of the patches, one ``.contiguous()``."""
+    oh, ow = conv_out_hw(x.shape[2], x.shape[3], kh, kw, strides, pads)
+    xp = F.pad(x, (pads[1], pads[3], pads[0], pads[2]), value=pad_value)
+    n, c = xp.shape[:2]
+    sh, sw = strides
+    s_n, s_c, s_h, s_w = xp.stride()
+    patches = xp.as_strided((n, oh, ow, c, kh, kw), (s_n, sh * s_h, sw * s_w, s_c, s_h, s_w))
+    return patches.contiguous().view(n * oh * ow, c * kh * kw)
+
+
+def quantized_conv2d_planned(
+    x_q: torch.Tensor,  # (N, C, H, W) int8, or uint8 when shape["x_uint8"]
+    w2: torch.Tensor,  # (np, kp) int8 — from template_qconv_params
+    b2: torch.Tensor,  # (1, np) int32 (uint8 fold included)
+    qs2: torch.Tensor,  # (1, np) f32
+    qsh2: torch.Tensor,  # (1, np) f32
+    shape: dict,  # the bound record
+    *,
+    out_dtype: torch.dtype = torch.int8,
+    relu: bool = False,
+    two_mul: bool = True,
+) -> torch.Tensor:
+    """ConvInteger → epilogue as im2col, then the qmatmul kernel with its
+    fused epilogue, then ``(N, OH, OW, M)`` permuted to NCHW (one copy).
+    A uint8 input is shifted to int8 and padded with −128, so the plan-time
+    ``128·Σw`` fold holds at the borders too."""
+    if shape["x_uint8"]:
+        x_q = shift_uint8(x_q)
+        pad_value = -128
+    else:
+        pad_value = 0
+    n_img = x_q.shape[0]
+    cols = im2col(x_q, shape["kh"], shape["kw"], shape["strides"], shape["pads"], pad_value)
+    if cols.shape[1] != shape["k"]:
+        raise ValueError(f"im2col rows have K={cols.shape[1]}, the plan expects {shape['k']}")
+    oh, ow = conv_out_hw(x_q.shape[2], x_q.shape[3], shape["kh"], shape["kw"],
+                         shape["strides"], shape["pads"])
+    out = _qmm.qmatmul(cols, w2, b2, qs2, qsh2, n=shape["n"], out_dtype=out_dtype,
+                       relu=relu, two_mul=two_mul, bm=shape["bm"])
+    return out.view(n_img, oh, ow, shape["n"]).permute(0, 3, 1, 2).contiguous()

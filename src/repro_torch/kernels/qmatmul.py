@@ -12,7 +12,8 @@ as ``(Np, Kp)`` int8 — or ``(Np, Kp // 2)`` uint8 nibble pairs, byte
 ``[n, r]`` holding k = 2r in its low and k = 2r + 1 in its high nibble — and
 bias / scales as ``(1, Np)`` rows.  Only ``Kp`` and ``Np`` are padded (to the
 kernel's 64-byte K stage and 64-column tile); the activation ``x`` arrives
-unpadded ``(M, K)`` and the kernel masks the ragged M and K edges itself.
+unpadded ``(M, K)`` — any K >= 1, at any byte alignment — and the kernel
+masks the ragged M and K edges itself.
 
 What bounds the kernel on an H100 and what its design does about it is in
 the note at the top of ``csrc/qmatmul.cu``.
@@ -120,17 +121,15 @@ def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dt
         raise ValueError(f"{name}: want int8 x and {want_w} w, got {x_q.dtype} and {w.dtype}")
     if out_dtype not in (torch.int8, torch.uint8):
         raise ValueError(f"{name}: out_dtype must be int8 or uint8, got {out_dtype}")
-    if kp % BK or np_ % BN or k % 4 or k > kp or n > np_ or bm not in SUPPORTED_BM:
+    if kp % BK or np_ % BN or not 1 <= k <= kp or n > np_ or bm not in SUPPORTED_BM:
         raise ValueError(
             f"{name}: shapes the kernel does not take: x {tuple(x_q.shape)}, w "
             f"{tuple(w.shape)}, n={n}, bm={bm} (need Kp % {BK} == 0, Np % {BN} == 0, "
-            f"K % 4 == 0, bm in {SUPPORTED_BM})"
+            f"1 <= K <= Kp, bm in {SUPPORTED_BM})"
         )
     ops = (x_q, w, bias_q, quant_scale, quant_shift)
     if any(t.device != x_q.device or not t.is_contiguous() for t in ops):
         raise ValueError(f"{name}: operands must be contiguous and on one device")
-    if x_q.data_ptr() % 4:
-        raise ValueError(f"{name}: x must be 4-byte aligned")
     if bias_q.dtype != torch.int32 or bias_q.numel() != np_ or quant_scale.numel() != np_ \
             or quant_shift.numel() != np_:
         raise ValueError(f"{name}: bias/scales must be ({np_},) rows, bias int32")

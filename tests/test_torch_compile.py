@@ -8,7 +8,12 @@
   the same order as ``repro``'s plan, and equal outputs on the port's ``ref``
   and ``cuda`` backends (on the CPU the ``cuda`` wrappers run their plain
   versions), static and over dynamic batch buckets;
-* specializations share the template's const tensors.
+* specializations share the template's const tensors;
+* the paper's Tanh/Sigmoid MLP (both tanh modes) and a per-channel CNN,
+  static and over dynamic batch buckets, on both port backends: the fused
+  stats and step kernel ids of ``repro``'s plan, and outputs equal to
+  ``repro``'s ``interpret`` backend (its Pallas kernels in interpret mode)
+  and ``ReferenceRuntime``.
 
 Tolerance: 0 on every integer path and every IEEE-exact float32 step.  The
 only float tolerance is on the generic ops whose float result depends on
@@ -24,13 +29,13 @@ from repro.core.compile import compile_model as jcompile
 from repro.core.patterns import conv_layer, fc_int8_tanh, fc_layer
 from repro.core.pqir import GraphBuilder
 from repro.core.runtime import ReferenceRuntime
-from repro.core.toolchain import MLPSpec, quantize_mlp
+from repro.core.toolchain import CNNSpec, ConvLayerSpec, MLPSpec, quantize_cnn, quantize_mlp
 from repro.serving.token_path import TokenPathConfig as JConfig
 from repro.serving.token_path import build_decode_model as jbuild_decode
 from repro.serving.token_path import build_prefill_model as jbuild_prefill
 from repro.serving.token_path import make_token_params as jmake_params
 from repro_torch.backend.generic import _TOPS
-from repro_torch.backend.registry import UnknownKernelError
+from repro_torch.backend.registry import UnknownKernelError, lookup
 from repro_torch.core.compile import compile_model
 from repro_torch.core.pqir import Model
 from test_conformance_sweep import CASES
@@ -188,10 +193,110 @@ def _conv_graph(rng):
     (_conv_graph, "qlinear_conv2d", "fused_qconv"),
 ])
 def test_unported_kernel_raises_on_cuda_and_runs_on_ref(graph, kernel, stat):
+    """Checks that the LUT and conv kernels fuse and run on both backends.
+
+    The name records when both kernels were ``ref``-only and raised
+    ``UnknownKernelError`` on ``cuda``; it is kept so the test's history
+    stays traceable.  Both are ported now: each backend compiles the fused
+    step and matches ``ReferenceRuntime``, and only a kernel id registered
+    on no backend still raises."""
     model, feeds = graph(np.random.default_rng(5))
-    with pytest.raises(UnknownKernelError, match=kernel):
-        compile_model(_port(model), backend="cuda", device="cpu")
-    cm = compile_model(_port(model), backend="ref", device="cpu")
-    assert cm.stats[stat] == 1
-    for k, v in ReferenceRuntime(model).run(feeds).items():
-        np.testing.assert_array_equal(cm.run(feeds)[k].numpy(), v)
+    for backend in ("ref", "cuda"):
+        cm = compile_model(_port(model), backend=backend, device="cpu")
+        assert cm.stats[stat] == 1 and kernel in [s.kernel for s in cm.plan.steps]
+        for k, v in ReferenceRuntime(model).run(feeds).items():
+            np.testing.assert_array_equal(cm.run(feeds)[k].numpy(), v)
+    with pytest.raises(UnknownKernelError, match="no_such_kernel"):
+        lookup("cuda", "no_such_kernel")
+
+
+def _paper_mlp(tanh_mode):
+    """The §4/§6 MLP: FC→Tanh, FC→Sigmoid (uint8 out, read by the last FC's
+    x_uint8 fold), FC with no activation; per-channel weights."""
+    rng = np.random.default_rng(17)
+    widths = (24, 40, 40, 12)
+    spec = MLPSpec(
+        weights=[rng.normal(size=(a, b)).astype(np.float32) / np.sqrt(a) for a, b in zip(widths, widths[1:])],
+        biases=[rng.normal(size=(b,)).astype(np.float32) * 0.1 for b in widths[1:]],
+        activations=["Tanh", "Sigmoid", None],
+    )
+    model = quantize_mlp(spec, rng.normal(size=(128, 24)).astype(np.float32),
+                         tanh_mode=tanh_mode, per_channel=True, name=f"paper_mlp_{tanh_mode}")
+    return model, rng.integers(-128, 128, (9, 24)).astype(np.int8)
+
+
+def _paper_cnn():
+    """The §5 CNN as quantize_cnn emits it: stride-2 convs with ReLU (a 7×7
+    stem and a 3×3 conv, C·kH·kW = 147 and 72) and an FC head; per-channel."""
+    rng = np.random.default_rng(19)
+    convs = [
+        ConvLayerSpec(rng.normal(size=(8, 3, 7, 7)).astype(np.float32) / np.sqrt(147),
+                      rng.normal(size=(8,)).astype(np.float32) * 0.1,
+                      strides=(2, 2), pads=(3, 3, 3, 3), activation="Relu"),
+        ConvLayerSpec(rng.normal(size=(16, 8, 3, 3)).astype(np.float32) / np.sqrt(72), None,
+                      strides=(2, 2), pads=(1, 1, 1, 1), activation="Relu"),
+    ]
+    head = MLPSpec([rng.normal(size=(16 * 4 * 4, 10)).astype(np.float32) / 16.0],
+                   [rng.normal(size=(10,)).astype(np.float32) * 0.1], [None])
+    model = quantize_cnn(CNNSpec(convs, head), rng.normal(size=(4, 3, 16, 16)).astype(np.float32),
+                         per_channel=True, name="paper_cnn")
+    return model, rng.integers(-128, 128, (5, 3, 16, 16)).astype(np.int8)
+
+
+PAPER_GRAPHS = {
+    "mlp_tanh_int8": lambda: _paper_mlp("int8"),
+    "mlp_tanh_fp16": lambda: _paper_mlp("fp16"),
+    "cnn": _paper_cnn,
+}
+
+
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+@pytest.mark.parametrize("batch", ["static", "dynamic"])
+@pytest.mark.parametrize("graph", sorted(PAPER_GRAPHS))
+def test_paper_models_match_repro(graph, batch, backend):
+    model, x = PAPER_GRAPHS[graph]()
+    jcm = jcompile(model, backend="interpret", batch=batch)
+    cm = compile_model(_port(model), backend=backend, device="cpu", batch=batch)
+    assert [s.kernel for s in cm.plan.steps] == [s.kernel for s in jcm.plan.steps]
+    for stat in ("fused_qlinear", "fused_qconv", "fused_lut", "generic"):
+        assert cm.stats[stat] == jcm.stats[stat], stat
+    assert cm.stats["fused_lut"] == (2 if graph.startswith("mlp") else 0)
+    assert cm.stats["fused_qconv"] == (2 if graph == "cnn" else 0)
+    rt = ReferenceRuntime(model)
+    for n in ((len(x),) if batch == "static" else (1, 3, len(x))):
+        want = rt.run({"input_q": x[:n]})
+        got = cm.run({"input_q": x[:n]})
+        jgot = jcm.run({"input_q": x[:n]})
+        for k, w in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), w)
+            np.testing.assert_array_equal(np.asarray(jgot[k]), w)
+
+
+def test_conv_template_records_and_shared_tensors():
+    """The cuda conv step's record shows the im2col GEMM layout; each batch
+    bucket binds M = N_bucket·OH·OW and shares the template's tensors."""
+    model, _ = _paper_cnn()
+    cm = compile_model(_port(model), backend="cuda", device="cpu", batch="dynamic")
+    convs = [s for s in cm.plan.steps if s.kernel == "qlinear_conv2d"]
+    rec = convs[0].params["shape"]
+    assert (rec["k"], rec["kp"], rec["np"], rec["kh"], rec["kw"]) == (147, 192, 64, 7, 7)
+    assert rec["strides"] == (2, 2) and rec["pads"] == (3, 3, 3, 3) and not rec["x_uint8"]
+    assert rec["lead"][1:] == (8, 8) and convs[0].consts[0].shape == (64, 192)
+    assert "kh=7" in cm.plan.pretty()
+    for bucket in (1, 4):
+        spec, _ = cm.specialized(bucket)
+        bound = [s for s in spec.steps if s.kernel == "qlinear_conv2d"]
+        assert [s.params["shape"]["m"] for s in bound] == [bucket * 64, bucket * 16]
+        for st, ts in zip(bound, convs):
+            assert all(a is b for a, b in zip(st.consts, ts.consts))
+
+
+def test_axis_position_maps_match_repro():
+    model, _ = _quickstart_mlp()
+    seq = _token_graphs()["prefill"]
+    for m, kw in ((model, dict(batch="dynamic")), (model, {}),
+                  (seq, dict(batch="dynamic", dynamic_axes={"N": None, "S": 8}))):
+        jcm = jcompile(m, backend="ref", **kw)
+        cm = compile_model(_port(m), backend="ref", device="cpu", **kw)
+        assert cm.axis_input_pos == jcm.axis_input_pos
+        assert cm.output_axis_pos == jcm.output_axis_pos

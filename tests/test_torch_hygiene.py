@@ -63,6 +63,19 @@ def test_source_imports_nothing_of_jax_or_repro(path):
     assert not bad, f"{path} imports {bad}"
 
 
+SLICE_MODULES = ["core/calibrate.py", "core/toolchain.py", "core/export.py",
+                 "kernels/qact_lut.py", "kernels/ops.py", "serving/compiled.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_compiled_model_slice_modules_are_scanned(rel):
+    """The MLP/CNN serving slice's modules are among the scanned sources,
+    and none of them names jax or repro in an import."""
+    path = PORT / rel
+    assert path in SOURCES
+    test_source_imports_nothing_of_jax_or_repro(path)
+
+
 def _tiny_model():
     gb = GraphBuilder("relu")
     gb.add_input("x", "int8", (None, 4))

@@ -4,7 +4,9 @@ On CPU tensors each ``repro_torch`` kernel wrapper runs its plain PyTorch
 version (the CUDA kernels themselves are held against those plain versions
 on the card by ``chip_smoke.py``).  Here the plain versions must equal
 ``repro``'s oracles (``repro.kernels.ref``) and ``repro``'s Pallas kernels
-run in interpret mode, on the same numpy-seeded inputs.
+run in interpret mode, on the same numpy-seeded inputs.  The conv route
+(im2col, then the qmatmul plain path) must equal ``repro``'s fused conv for
+int8 inputs and ``repro``'s ``ReferenceRuntime`` for uint8 inputs with pads.
 
 Tolerance: 0.  Every path is integer arithmetic or an IEEE-exact float32
 elementwise step in the codified order, so the results are bit-identical.
@@ -14,12 +16,16 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from repro.core.patterns import ATTN_BIG, ATTN_LUT_SCALE, ATTN_P_SCALE, build_exp_lut
+from repro.core import quant as jquant
+from repro.core.patterns import ATTN_BIG, ATTN_LUT_SCALE, ATTN_P_SCALE, build_exp_lut, conv_layer
+from repro.core.pqir import GraphBuilder
+from repro.core.runtime import ReferenceRuntime
 from repro.kernels import ops as jops
 from repro.kernels import pack as jpack
+from repro.kernels import qact_lut as jqact
 from repro.kernels import qattention as jqatt
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, launch_counts, ops, pack, qattention, qmatmul, ref
+from repro_torch.kernels import _build, launch_counts, ops, pack, qact_lut, qattention, qmatmul, ref
 
 # (M, K, N, bits, relu, two_mul, out_dtype, per_channel): M off the 16/64 row
 # tiles, K and N off the 64 tiles, both lanes, both output dtypes
@@ -29,6 +35,11 @@ MATMUL_CASES = [
     (1, 128, 64, 8, True, False, "int8", True),
     (17, 96, 70, 4, False, True, "int8", True),
     (70, 192, 40, 4, True, False, "uint8", False),
+    # K off the kernel's 4-byte words: the conv route's C·kH·kW widths
+    (4, 10, 64, 8, False, True, "int8", True),
+    (77, 27, 64, 4, True, True, "int8", False),
+    (77, 147, 64, 8, True, False, "uint8", True),
+    (4, 147, 64, 4, False, True, "int8", True),
 ]
 
 
@@ -134,6 +145,127 @@ def test_pack_int4_matches_repro(k, n):
     np.testing.assert_array_equal(qmatmul.unpack_int4_nk(nk).numpy(), w.T)
 
 
+# a row, a ragged tile, a whole Pallas block, rank 3
+LUT_SHAPES = [(1, 7), (37, 2051), (512, 64), (3, 5, 40)]
+
+
+@pytest.mark.parametrize("lut_dtype", ["int8", "uint8"])
+@pytest.mark.parametrize("shape", LUT_SHAPES)
+def test_qact_lut_matches_repro(shape, lut_dtype):
+    rng = np.random.default_rng(sum(shape) + len(lut_dtype))
+    x = rng.integers(-128, 128, shape).astype(np.int8)
+    info = np.iinfo(lut_dtype)
+    lut = rng.integers(info.min, info.max + 1, (256,)).astype(lut_dtype)
+    want = np.asarray(jref.qact_lut_ref(jnp.asarray(x), jnp.asarray(lut)))
+    if len(shape) == 2:
+        want_pallas = jqact.qact_lut(jnp.asarray(x), jnp.asarray(lut), block=512, interpret=True)
+    else:  # repro's planned call flattens the leading dims for the kernel
+        want_pallas = jops.quantized_activation(jnp.asarray(x), lut, backend="interpret")
+    np.testing.assert_array_equal(np.asarray(want_pallas), want)
+    tx, tl = torch.from_numpy(x), torch.from_numpy(lut)
+    before = launch_counts()
+    for got in (qact_lut.qact_lut(tx, tl), qact_lut.qact_lut_plain(tx, tl),
+                ops.quantized_activation(tx, tl)):
+        assert got.dtype == tl.dtype and got.shape == tx.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert launch_counts() == before
+
+
+def test_qact_lut_takes_an_unaligned_slice():
+    """A slice that starts one byte into a larger tensor is still a flat
+    contiguous byte array: the kernel's head loop takes such a base."""
+    rng = np.random.default_rng(9)
+    big = torch.from_numpy(rng.integers(-128, 128, (4097,)).astype(np.int8))
+    lut = torch.from_numpy(rng.integers(0, 256, (256,)).astype(np.uint8))
+    x = big[1:]
+    assert x.is_contiguous() and x.storage_offset() == 1
+    np.testing.assert_array_equal(qact_lut.qact_lut(x, lut).numpy(),
+                                  lut.numpy()[x.numpy().astype(np.int64) + 128])
+
+
+def _conv_operands(rng, m, c, k, per_channel):
+    w = rng.integers(-128, 128, (m, c, k, k)).astype(np.int8)
+    b = rng.integers(-4000, 4000, (m,)).astype(np.int32)
+    if per_channel:
+        qs = rng.integers(1 << 10, 1 << 20, (m,)).astype(np.float32)
+        qsh = (2.0 ** -rng.integers(18, 26, (m,))).astype(np.float32)
+    else:
+        qs, qsh = np.float32(3245.0), np.float32(2.0 ** -22)
+    return w, b, qs, qsh
+
+
+def _planned_conv(x, w, b, qs, qsh, strides, pads, out, relu, two_mul):
+    consts, shape = ops.template_qconv_params(w, b, qs, qsh, strides=strides, pads=pads,
+                                              x_uint8=x.dtype == np.uint8)
+    oh, ow = ops.conv_out_hw(x.shape[2], x.shape[3], w.shape[2], w.shape[3], strides, pads)
+    bound = ops.bind_qmatmul_axes({**shape, "lead": (x.shape[0], oh, ow)}, None)
+    return ops.quantized_conv2d_planned(
+        torch.from_numpy(x), *consts, bound, out_dtype=getattr(torch, out), relu=relu,
+        two_mul=two_mul,
+    ).numpy()
+
+
+# (kernel, stride, pads, C, M, per_channel, relu, two_mul, out): C·kH·kW is
+# never a multiple of 4 where C is odd
+CONV_CASES = [
+    (1, 1, (0, 0, 0, 0), 3, 8, False, False, True, "int8"),
+    (3, 1, (1, 1, 1, 1), 3, 5, True, True, True, "int8"),
+    (3, 2, (1, 1, 1, 1), 5, 16, True, False, False, "int8"),
+    (7, 2, (3, 3, 3, 3), 3, 8, True, True, True, "uint8"),
+    (3, 2, (0, 1, 1, 0), 3, 4, False, True, False, "int8"),
+    (7, 1, (3, 3, 3, 3), 1, 4, True, False, True, "int8"),
+]
+
+
+@pytest.mark.parametrize("k,stride,pads,c,m,per_channel,relu,two_mul,out", CONV_CASES)
+def test_conv_route_matches_repro(k, stride, pads, c, m, per_channel, relu, two_mul, out):
+    rng = np.random.default_rng(k * 100 + c * 10 + m)
+    x = rng.integers(-128, 128, (2, c, 11, 9)).astype(np.int8)
+    w, b, qs, qsh = _conv_operands(rng, m, c, k, per_channel)
+    want = np.asarray(jops.quantized_conv2d(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(qs), jnp.asarray(qsh),
+        strides=(stride, stride), pads=pads, out_dtype=getattr(jnp, out), relu=relu,
+        two_mul=two_mul,
+    ))
+    before = launch_counts()
+    got = _planned_conv(x, w, b, qs, qsh, (stride, stride), pads, out, relu, two_mul)
+    assert launch_counts() == before
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("pads", [(1, 1, 1, 1), (3, 0, 2, 1)])
+def test_uint8_padded_conv_matches_reference_runtime(pads):
+    """A uint8 input pads with 0 in uint8 space (ONNX, zero point 0), so the
+    shifted int8 input must pad with -128 for the plan-time 128·Σw fold to
+    hold at the borders.  The oracle is ``ReferenceRuntime``, not
+    ``repro``'s fused conv, which pads the shifted input with 0 (ROADMAP §C)."""
+    rng = np.random.default_rng(sum(pads))
+    x = rng.integers(0, 256, (2, 3, 6, 5)).astype(np.uint8)
+    w, b, _, _ = _conv_operands(rng, 4, 3, 3, per_channel=True)
+    rescale = jquant.decompose_multipliers(rng.uniform(1e-5, 1e-4, (4,)))
+    qs, qsh = rescale.quant_scale.astype(np.float32), rescale.quant_shift
+    gb = GraphBuilder("conv_u8")
+    gb.add_input("x", "uint8", (None, 3, 6, 5))
+    y = conv_layer(gb, "x", w, b, rescale, "c0", pads=pads, two_mul=True)
+    oh, ow = ops.conv_out_hw(6, 5, 3, 3, (1, 1), pads)
+    gb.add_output(y, "int8", (None, 4, oh, ow))
+    want = next(iter(ReferenceRuntime(gb.build(opset=17)).run({"x": x}).values()))
+    got = _planned_conv(x, w, b, qs, qsh, (1, 1), pads, "int8", False, True)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_im2col_layout():
+    """Rows in (n, oh, ow) order, columns in (c, kh, kw) order, the border
+    reading the pad value."""
+    x = torch.arange(2 * 2 * 3 * 3, dtype=torch.int8).reshape(2, 2, 3, 3)
+    cols = ops.im2col(x, 2, 2, (1, 1), (1, 0, 0, 1), pad_value=-5)
+    assert cols.shape == (2 * 3 * 3, 2 * 2 * 2) and cols.is_contiguous()
+    xp = torch.nn.functional.pad(x, (0, 1, 1, 0), value=-5)
+    n, oh, ow = 1, 2, 0
+    want = xp[n, :, oh:oh + 2, ow:ow + 2].reshape(-1)
+    assert torch.equal(cols[n * 9 + oh * 3 + ow], want)
+
+
 def test_wrappers_refuse_devices_they_cannot_serve():
     """Off the CPU a wrapper launches its kernel or raises: it never takes the
     plain version (a meta tensor stands in for an unsupported device)."""
@@ -147,6 +279,8 @@ def test_wrappers_refuse_devices_they_cannot_serve():
             q, q, q, torch.zeros((1, 1, 1), device="meta"), torch.zeros(256, dtype=torch.uint8),
             qk_scale=1.0, big=1.0, lut_scale=1.0, p_scale=1.0, rescale=1.0,
         )
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        qact_lut.qact_lut(q, torch.zeros(256, dtype=torch.int8, device="meta"))
 
 
 def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
@@ -160,6 +294,7 @@ def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
 def test_library_named_by_source_hash():
     a, b = _build.library_path("qmatmul"), _build.library_path("qattention")
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so" and a != b
+    assert set(_build.STEMS) == {"qmatmul", "qattention", "qact_lut"}
     assert a == _build.library_path("qmatmul")
 
 
