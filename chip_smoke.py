@@ -8,8 +8,13 @@ Drives the port's main path on one CUDA card and fails loudly:
    qact_lut) for sm_90a, one process per source, all at once;
 3. kernels — each hand-written kernel (qmatmul, qmatmul_packed, qattention,
    qact_lut) held bit-exact against its plain PyTorch version at the shapes
-   its paths give it (the token path; the K-edge and conv GEMMs of the CNN;
-   the MLP's LUT layers), then timed with CUDA events beside its bound;
+   its paths give it (the token path; slice A's three layers, slice B's five
+   conv GEMMs and its FC head at their largest buckets; K off the 16-byte
+   copies; the MLP's LUT layers), then timed with CUDA events beside its
+   bound; each matmul row prints the route it took (instruction, tiles, K
+   splits, staging of x) and, where ``torch._int_mm`` takes the shape, that
+   call's time for the int32 GEMM body alone (``gemm_library_ms``, a
+   yardstick the port never calls);
 4. token path — the compiled token path at Qwen3-1.7B widths (vocab 151936,
    d_model 2048, 16 heads of 128, d_ff 6144; depth cut to ``N_LAYERS``),
    built twice from one seed — backend ``cuda`` and backend ``ref`` — and
@@ -114,10 +119,8 @@ MATMUL_SHAPES = [  # (K, N, bits, relu): qkv, o, up, down of one layer
     (6144, 2048, 4, False),
 ]
 MATMUL_M = (4, 77, 128, 512)
-#: K off the kernel's 32-bit words (the conv route's C·kH·kW), both lanes
+#: K off the kernel's 16-byte copies (the conv route's C·kH·kW), both lanes
 EDGE_K, EDGE_M, EDGE_N = (10, 27, 147), (4, 77), 64
-#: slice B's conv GEMMs at batch 16: the stem and the last conv, (M, K, N)
-CONV_GEMMS = [(16 * 112 * 112, 3 * 7 * 7, 64), (16 * 7 * 7, 512 * 3 * 3, 512)]
 #: qact_lut shapes: a decode row, slice A's largest bucket, a large batch,
 #: a ragged tile whose numel is not a multiple of 16
 LUT_SHAPES = [(1, 6144), (64, 6144), (4096, 6144), (37, 2051)]
@@ -147,6 +150,33 @@ def _max_err(got, want) -> int:
     return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
 
 
+def served_gemms():
+    """The qmatmul shapes of slices A and B at their largest buckets, as
+    ``(tag, M, K, N, relu)``: slice A's three layers at batch 64, slice B's
+    five conv GEMMs (M = 16·OH·OW, K = C·kH·kW) and its FC head at batch 16."""
+    out = [("sliceA", MLP_MAX_BATCH, a, b, False) for a, b in zip(MLP_WIDTHS, MLP_WIDTHS[1:])]
+    side = CNN_IN[1]
+    for m, c, k, st, pd in CNN_CONVS:
+        side = (side + 2 * pd - k) // st + 1
+        out.append(("conv", CNN_MAX_BATCH * side * side, c * k * k, m, True))
+    out.append(("fc", CNN_MAX_BATCH, CNN_CONVS[-1][0] * side * side, CNN_CLASSES, False))
+    return out
+
+
+def _int_mm_ms(x, w2, k, n, flush):
+    """Time of ``torch._int_mm`` for the int32 GEMM body of the same
+    product (no bias, rescale or requant), or None where it refuses the
+    shape (it wants M > 16 and K, N multiples of 8)."""
+    import torch
+
+    wt = w2[:n, :k].t()
+    try:
+        torch._int_mm(x, wt)
+    except RuntimeError:
+        return None
+    return time_ms(lambda: torch._int_mm(x, wt), flush)
+
+
 def _check_matmul(rng, device, flush, rows, worst, m, k, n, bits, relu, tag=""):
     import torch
 
@@ -158,20 +188,26 @@ def _check_matmul(rng, device, flush, rows, worst, m, k, n, bits, relu, tag=""):
     kern = qmm.qmatmul_packed if bits == 4 else qmm.qmatmul
     plain = qmm.qmatmul_packed_plain if bits == 4 else qmm.qmatmul_plain
     x = torch.from_numpy(_int8(rng, (m, k))).to(device)
-    bm = ops.bind_qmatmul_axes({**shape, "lead": (m,)}, None)["bm"]
-    kw = dict(n=n, relu=relu, two_mul=True, bm=bm)
+    bound = ops.bind_qmatmul_axes({**shape, "lead": (m,)}, None)
+    kw = dict(n=n, relu=relu, two_mul=True, bm=bound["bm"], splits=bound["splits"])
+    rt = qmm.route(x, bound["bm"], bound["splits"])
     err = _max_err(kern(x, *consts, **kw), plain(x, *consts, **kw))
     worst[name] = max(worst[name], err)
     if err:
-        raise AssertionError(f"{name} K={k} N={n} M={m}: max |kernel - plain| = {err}")
+        raise AssertionError(f"{name} K={k} N={n} M={m} {rt}: max |kernel - plain| = {err}")
     wbytes = k * n // 2 if bits == 4 else k * n
     b_ms, b_by = bound_ms(m * k + wbytes + 12 * n + m * n, 2.0 * m * n * k)
     ms = time_ms(lambda: kern(x, *consts, **kw), flush)
     pms = time_ms(lambda: plain(x, *consts, **kw), flush)
+    # no library GEMM takes int4 nibble pairs
+    gms = _int_mm_ms(x, consts[0], k, n, flush) if bits == 8 else None
     rows.append(dict(kernel=name, shape=f"M={m},K={k},N={n},w{bits}{',relu' if relu else ''}{tag}",
-                     ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
-    log(f"  {name:15s} M={m:6d} K={k:4d} N={n:4d} w{bits}{tag}: exact, {ms:.4f} ms "
-        f"(plain {pms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
+                     ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                     route=rt, gemm_library_ms=gms))
+    gtxt = "refused" if gms is None else f"{gms:.4f} ms"
+    log(f"  {name:15s} M={m:6d} K={k:5d} N={n:4d} w{bits}{tag}: exact, {ms:.4f} ms (plain "
+        f"{pms:.4f} ms, bound {b_ms:.3g} ms by {b_by}, _int_mm body {gtxt}) "
+        f"[{rt['instruction']} bm={rt['bm']} bn={rt['bn']} splits={rt['splits']} {rt['staging']}]")
 
 
 def _check_lut(flush, rows, worst, x, lut, tag):
@@ -212,8 +248,8 @@ def check_kernels(device, flush, rows):
         for bits in (8, 4):
             for m in EDGE_M:
                 _check_matmul(rng, device, flush, rows, worst, m, k, EDGE_N, bits, False)
-    for m, k, n in CONV_GEMMS:
-        _check_matmul(rng, device, flush, rows, worst, m, k, n, 8, True, tag=",conv")
+    for tag, m, k, n, relu in served_gemms():
+        _check_matmul(rng, device, flush, rows, worst, m, k, n, 8, relu, tag=f",{tag}")
 
     for m, n in LUT_SHAPES:
         x = torch.from_numpy(_int8(rng, (m, n))).to(device)
@@ -697,7 +733,8 @@ def main() -> int:
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers); library_ms is torch.take for "
         "qact_lut (int64 indices made beforehand) and null for the others: no single "
-        "PyTorch call computes either fused function")
+        "PyTorch call computes either fused function; each matmul row of chip_smoke.json "
+        "carries gemm_library_ms, torch._int_mm's int32 GEMM body alone, where it takes the shape")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,

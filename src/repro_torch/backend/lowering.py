@@ -200,7 +200,8 @@ def specialize_plan(
     a bare int is PR 4 sugar for ``{"N": int}``.  This is the *late* half of
     shape specialization: for every fused-qmatmul step carrying an axis-open
     shape record the flat M and the bm tile are computed from the bound lead
-    dims (:func:`repro_torch.kernels.ops.bind_qmatmul_axes`) — a conv step's
+    dims, with the number of K splits for that M
+    (:func:`repro_torch.kernels.ops.bind_qmatmul_axes`) — a conv step's
     record has lead ``(N, OH, OW)``, so its GEMM M is N_bucket·OH·OW — and every value's
     symbolic dims are substituted in ``out_info`` so the specialized plan
     renders fully concrete.  Everything else — steps, slots, liveness,
@@ -272,7 +273,8 @@ def specialize_plan(
                     shape = kops.bind_qmatmul_axes(step.params["shape"], bindings)
                     params["shape"] = shape
                     rec = ",".join(
-                        f"{k}={shape[k]}" for k in ("m", "bm", "bk", "bn") if k in shape
+                        f"{k}={shape[k]}" for k in ("m", "bm", "bk", "bn", "splits")
+                        if k in shape
                     )
                     if "bits" in shape:
                         # sub-8-bit weight lane: a hardware designer reads the

@@ -6,8 +6,9 @@ loaded with :mod:`ctypes` (pointers and the stream go as ``c_void_p``).  No
 PyTorch header is included, so a build takes seconds, not minutes.
 
 Libraries land in ``build/repro_torch/`` at the repository root, named by a
-hash of the source and the flags: a changed source builds anew at its first
-use, an unchanged one loads what is there.  :func:`build` starts one
+hash of the source, of every shared header ``csrc/*.cuh`` and of the flags:
+a changed source or header builds anew at its first use, an unchanged one
+loads what is there.  :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for them together.  A failed
 build raises with ``nvcc``'s output in the message; nothing falls back.
 """
@@ -51,8 +52,12 @@ def nvcc_path() -> str:
 
 
 def library_path(stem: str) -> Path:
-    """Where ``csrc/<stem>.cu`` builds to: named by a hash of source + flags."""
+    """Where ``csrc/<stem>.cu`` builds to: named by a hash of the source,
+    the headers it may include (every ``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 

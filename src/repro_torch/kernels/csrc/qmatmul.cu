@@ -5,208 +5,384 @@
 // Replaces the TPU kernels repro/kernels/qmatmul.py::qmatmul (int8 weights)
 // and ::qmatmul_packed (int4 nibble pairs), with their shared _epilogue.
 //
-// Bound on an H100: at the token path's decode shapes (M = a few rows,
-// K x N = 2048 x 6144) the weight bytes dominate, so the kernel is bound by
-// device memory (3.35 TB/s); at prefill shapes (M >= 512) it is bound by
-// int8 operations.  This first kernel is deliberately simple: a SIMT tile
-// loop on __dp4a (4 int8 products per instruction, int32 accumulation), one
-// BM x 64 output tile per block, K staged through shared memory 64 bytes at a
-// time.  It does not reach the tensor cores (wgmma) and does not pipeline its
-// loads (TMA); both are later work.  What it does about the bound:
-//   * the weight is stored K-contiguous as (Np, Kp) by the plan template, so
-//     a block streams whole 16-byte runs of W with no transpose, and a packed
-//     int4 weight streams half the bytes, unpacked in the shared staging;
-//   * small M runs a 16-row tile (BM = 16) so decode does not spend 64-row
-//     work per weight byte;
-//   * the epilogue runs on the int32 accumulator in registers — the
+// What bounds it on an H100 (3.35 TB/s, 1,979 int8 TOP/s, 132 SMs):
+//   * decode (M = a few rows), slice A's M = 64 layers, the FC head at M = 16
+//     and most conv GEMMs: the weight bytes (or the im2col rows) — device
+//     memory.  The kernel must keep enough bytes in flight on every SM, and
+//     there must be enough blocks to put them there: a 2048- or 1000-wide
+//     layer has only 16–32 column tiles of 64.
+//   * prefill (M >= 512) and the 3136-row conv: int8 operations.
+// What the design does about it:
+//   * Exact split-K fills the card.  The grid is (M tiles, N tiles, splits);
+//     split z owns whole 64-byte K stages [z·S/splits, (z+1)·S/splits) of the
+//     S = Kp/64.  The planner (kernels/qmatmul.py::choose_splits) picks
+//     splits so tiles × splits reaches about 2 × 132 blocks, and 1 where the
+//     tiles already fill the card.  A split block writes its int32 partial
+//     tile to a workspace slab, takes a per-tile ticket, and the last block to
+//     arrive adds the other slabs to its registers, runs the epilogue once on
+//     the full sum and zeroes the ticket for the next call.  int32 addition
+//     is associative and commutative mod 2^32, so every split and every
+//     arrival order gives the bits of the unsplit sum.  The wrapper owns the
+//     workspace and the tickets (cached per device and stream).
+//   * Loads stay in flight: a ring of STAGES shared-memory stages (6 on the
+//     decode route, 4 on the tile route).  Stage s + STAGES - 1 is issued as
+//     16-byte cp.async copies before stage s is computed, so the copies of
+//     the next stages overlap the tensor-core work on this one.  The weight
+//     (Np, Kp) is K-contiguous with Kp % 64 == 0, so its rows are always
+//     whole 16-byte chunks.  x goes the same way when K % 16 == 0 and x is
+//     16-byte aligned; an x that 16-byte copies cannot describe (the conv
+//     stem's im2col rows have K = 147) is staged by the threads, byte by
+//     byte, into the same layout: its global loads for stage s + STAGES - 1
+//     are issued into registers before stage s is computed and stored to
+//     shared memory after it, and the prologue issues the loads of all its
+//     stages before it stores any (the stem's whole K is three stages, so
+//     its x costs one round trip, not three).  The wrapper chooses the
+//     staging from K and the pointer at launch (a template parameter, X16);
+//     it is not a fallback.
+//   * The int8 tensor cores: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
+//     (exact int32 accumulation).  mma.sync and not wgmma: the decode route
+//     has 16 rows (wgmma's smallest M is 64), and every main-path shape but
+//     prefill and the 3136-row conv is bound by bytes, where the product's
+//     issue rate does not matter; one instruction for both routes keeps one
+//     mainloop.  Inside each 32-deep product step the k order is permuted
+//     alike for x and W (fragment position 4t+j ↔ k = 8t+j, 16+4t+j ↔
+//     k = 8t+4+j), which a sum does not see: thread (g, t) then reads eight
+//     consecutive bytes of a row for its A (rows g, g+8) and B fragments, one
+//     64-bit shared load each.  The 16-byte chunks of each row are permuted
+//     by a row bit (an XOR swizzle) so those loads hit 32 distinct banks.
+//   * Two routes by M, both BN = 64 columns on 4 warps: decode (BM = 16, one
+//     16-row fragment, rows past M zero; each warp 16 columns) and tile
+//     (BM = 64; each warp a 32 x 32 block, 8 products per 32-deep step).
+//   * Packed int4 rides the same mainloop: the (Np, Kp/2) nibble-pair tile
+//     lands in shared memory at half the bytes; a thread's 32-bit load holds
+//     its 8 consecutive k, sign-extended with __vsub4 and interleaved with
+//     __byte_perm (k = 2r low nibble, 2r + 1 high) straight into its B
+//     fragment.
+//   * The epilogue runs in registers on the full int32 sum: the
 //     Cast/Mul/Mul/QuantizeLinear chain never round-trips to device memory.
 //
-// Any K and any alignment of x: x is staged as 32-bit words, read whole when
-// K % 4 == 0 and x is 4-byte aligned, else assembled byte by byte (the conv
-// route's im2col rows have K = C*kH*kW, e.g. 147 for a 7x7 RGB stem).  The
-// bytes beyond K read as zero either way, so the int32 sum is the same.  The
-// choice is a template parameter, so the word path compiles as it did
-// before the byte path existed.
-//
-// Exactness: the int32 sum is order-independent; the epilogue uses the
-// IEEE round-to-nearest intrinsics (__int2float_rn, __fmul_rn) and rintf, so
-// no mul+add can contract into an FMA, in the codified op order.
+// Exactness: the int32 sum is order-independent; the epilogue wraps the bias
+// add in unsigned arithmetic and uses the IEEE round-to-nearest intrinsics
+// (__int2float_rn, __fmul_rn), fmaxf and rintf, so no mul+add can contract
+// into an FMA, in the codified op order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
-constexpr int BN = 64;        // output columns per block
-constexpr int BK = 64;        // K bytes (int8 values) per shared-memory stage
-constexpr int KW = BK / 4;    // 32-bit words per staged row
-constexpr int LDS = KW + 1;   // padded row stride (words) against bank conflicts
-constexpr int THREADS = 256;  // (BN / TN) x (BM / TM)
-constexpr int TN = 4;         // columns per thread: tx + 16 * j
+using repro_ptx::cp_async16;
+using repro_ptx::cp_async_commit;
+using repro_ptx::cp_async_wait;
+using repro_ptx::mma_s8_16832;
 
-// Word gk (k = 4*gk .. 4*gk+3) of x row gm, zero beyond the ragged M and K
-// edges.  WORDS: K % 4 == 0 and x 4-byte aligned, so the word is one load.
-template <bool WORDS>
-__device__ __forceinline__ unsigned x_word(const int8_t* __restrict__ x, int gm,
-                                           int gk, int M, int K) {
-  if (gm >= M) return 0u;
-  if (WORDS)
-    return gk < K / 4
-               ? reinterpret_cast<const unsigned*>(x)[(size_t)gm * (K / 4) + gk]
-               : 0u;
-  const uint8_t* row = reinterpret_cast<const uint8_t*>(x) + (size_t)gm * K;
-  unsigned v = 0u;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int k = 4 * gk + b;
-    if (k < K) v |= (unsigned)row[k] << (8 * b);
-  }
-  return v;
+constexpr int BN = 64;        // output columns per block (Np % 64 == 0)
+constexpr int BK = 64;        // K bytes per pipeline stage (Kp % 64 == 0)
+constexpr int THREADS = 128;  // four warps
+
+// Byte offset of byte c of row r in a tile of 64-byte rows.  The four
+// 16-byte chunks of a row are permuted by bit 1 of r, so the 8-byte
+// fragment loads of rows g = 0..3 (one half-warp) fall on distinct banks.
+__device__ __forceinline__ int off64(int r, int c) {
+  return r * 64 + (((c >> 4) ^ (r & 2)) << 4) + (c & 15);
+}
+
+// The same for 32-byte rows (a packed weight stage): chunks permuted by bit
+// 2 of r, so the 4-byte loads of rows 0..7 (one warp) fall on distinct banks.
+__device__ __forceinline__ int off32(int r, int c) {
+  return r * 32 + (((c >> 4) ^ ((r >> 2) & 1)) << 4) + (c & 15);
 }
 
 // Sign-extend the four 4-bit values held in the low nibbles of each byte.
-__device__ __forceinline__ int sext_nibbles(unsigned v) {
-  return (int)__vsub4(v ^ 0x08080808u, 0x08080808u);
+__device__ __forceinline__ unsigned sext_nibbles(unsigned v) {
+  return __vsub4(v ^ 0x08080808u, 0x08080808u);
 }
 
-template <int BM, int TM, bool PACKED, bool WORDS>
+__device__ __forceinline__ uint8_t requant(int acc, int b, float s, float sh, int relu,
+                                           int two_mul, float lo, float hi) {
+  // int32 + int32 wraps, as the reference's int32 add does
+  const int a32 = (int)((unsigned)acc + (unsigned)b);
+  float f = __fmul_rn(__int2float_rn(a32), s);
+  if (two_mul) f = __fmul_rn(f, sh);
+  if (relu) f = fmaxf(f, 0.0f);
+  f = fminf(fmaxf(rintf(f), lo), hi);
+  return (uint8_t)(int)f;
+}
+
+template <int BM, int STAGES, bool PACKED, bool X16>
 __global__ void __launch_bounds__(THREADS)
 qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
                const int* __restrict__ bias, const float* __restrict__ qs,
                const float* __restrict__ qsh, uint8_t* __restrict__ out,
-               int M, int K, int N, int Kp, int relu, int two_mul,
-               int out_uint8) {
-  __shared__ int xs[BM][LDS];
-  __shared__ int ws[BN][LDS];
+               int* __restrict__ ws, int* __restrict__ tickets, int M, int K, int N,
+               int Kp, int relu, int two_mul, int out_uint8) {
+  constexpr int WROW = PACKED ? BK / 2 : BK;  // weight bytes per row per stage
+  constexpr int MI = BM == 16 ? 1 : 2;        // 16-row fragments per warp
+  constexpr int NI = BM == 16 ? 2 : 4;        // 8-column fragments per warp
+  constexpr int NACC = MI * NI * 4;           // int32 accumulators per thread
+  constexpr int XWORDS = BM * BK / 4 / THREADS;  // byte-staged x words per thread
+  __shared__ __align__(128) uint8_t xs[STAGES][BM * BK];
+  __shared__ __align__(128) uint8_t wsm[STAGES][BN * WROW];
+  __shared__ int s_last;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);  // 0..15
-  const int ty = tid / (BN / TN);  // 0..BM/TM-1
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int wrow = BM == 16 ? 0 : (warp >> 1) * 32;
+  const int wcol = BM == 16 ? warp * 16 : (warp & 1) * 32;
+  const int splits = gridDim.z, z = blockIdx.z;
+  const int nst = Kp / BK;
+  const int s0 = (int)((long long)z * nst / splits);
+  const int count = (int)((long long)(z + 1) * nst / splits) - s0;
+  const size_t wpitch = PACKED ? (size_t)Kp / 2 : (size_t)Kp;
 
-  int acc[TM][TN];
+  // The 16-byte copies of stage s into ring slot `slot`: the weight always,
+  // x on the X16 route (rows past M and chunks past K zero-filled).
+  auto load_async = [&](int s, int slot) {
+    const int k0 = s * BK;
+    const uint8_t* wb = w + (size_t)n0 * wpitch + (PACKED ? k0 / 2 : k0);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int e = tid; e < BN * (WROW / 16); e += THREADS) {
+      const int r = e / (WROW / 16), c = 16 * (e % (WROW / 16));
+      cp_async16(&wsm[slot][PACKED ? off32(r, c) : off64(r, c)], wb + r * wpitch + c, true);
+    }
+    if (X16) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  const unsigned* wwords = reinterpret_cast<const unsigned*>(w);
-
-  for (int k0 = 0; k0 < Kp; k0 += BK) {
-    const int kw0 = k0 / 4;
-    if (!PACKED) {
-      // x tile: BM rows x KW words, zero beyond the ragged M and K edges
-      for (int e = tid; e < BM * KW; e += THREADS) {
-        const int r = e / KW, c = e % KW;
-        xs[r][c] = (int)x_word<WORDS>(x, m0 + r, kw0 + c, M, K);
-      }
-      // W tile: BN rows (output columns) x KW words of the (Np, Kp) weight
-      for (int e = tid; e < BN * KW; e += THREADS) {
-        const int r = e / KW, c = e % KW;
-        ws[r][c] = (int)wwords[(size_t)(n0 + r) * (Kp / 4) + kw0 + c];
-      }
-    } else {
-      // Each packed word holds 8 consecutive k: low nibbles are the even k,
-      // high nibbles the odd k.  Stage x with its bytes split the same way,
-      // so word 2q holds the even k and word 2q+1 the odd k of group q, and
-      // the inner loop stays one dot product over 16 words.
-      for (int e = tid; e < BM * (KW / 2); e += THREADS) {
-        const int r = e / (KW / 2), q = e % (KW / 2);
-        const int gm = m0 + r, gk = kw0 + 2 * q;
-        const unsigned a = x_word<WORDS>(x, gm, gk, M, K);
-        const unsigned b = x_word<WORDS>(x, gm, gk + 1, M, K);
-        xs[r][2 * q] = (int)__byte_perm(a, b, 0x6420);
-        xs[r][2 * q + 1] = (int)__byte_perm(a, b, 0x7531);
-      }
-      for (int e = tid; e < BN * (KW / 2); e += THREADS) {
-        const int r = e / (KW / 2), q = e % (KW / 2);
-        const unsigned p = wwords[(size_t)(n0 + r) * (Kp / 8) + k0 / 8 + q];
-        ws[r][2 * q] = sext_nibbles(p & 0x0F0F0F0Fu);
-        ws[r][2 * q + 1] = sext_nibbles((p >> 4) & 0x0F0F0F0Fu);
+      for (int e = tid; e < BM * 4; e += THREADS) {
+        const int r = e >> 2, c = 16 * (e & 3);
+        const int gm = m0 + r, gk = k0 + c;
+        const bool in = gm < M && gk < K;  // K % 16 == 0: a chunk is all in or all out
+        cp_async16(&xs[slot][off64(r, c)], in ? x + (size_t)gm * K + gk : x, in);
       }
     }
-    __syncthreads();
+  };
+
+  // Byte-staged x: the loads of stage s into registers, then their store.
+  auto load_x_bytes = [&](int s, unsigned (&xr)[XWORDS]) {
+    const int k0 = s * BK;
 #pragma unroll
-    for (int c = 0; c < KW; ++c) {
-      int a[TM], b[TN];
+    for (int i = 0; i < XWORDS; ++i) {
+      const int e = tid + i * THREADS;
+      const int gm = m0 + (e >> 4), gk = k0 + 4 * (e & 15);
+      unsigned v = 0u;
+      if (gm < M) {
+        const uint8_t* row = reinterpret_cast<const uint8_t*>(x) + (size_t)gm * K;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[ty * TM + i][c];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = ws[tx + 16 * j][c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+        for (int b = 0; b < 4; ++b)
+          if (gk + b < K) v |= (unsigned)row[gk + b] << (8 * b);
+      }
+      xr[i] = v;
     }
+  };
+  auto store_x_bytes = [&](int slot, const unsigned (&xr)[XWORDS]) {
+#pragma unroll
+    for (int i = 0; i < XWORDS; ++i) {
+      const int e = tid + i * THREADS;
+      *reinterpret_cast<unsigned*>(&xs[slot][off64(e >> 4, 4 * (e & 15))]) = xr[i];
+    }
+  };
+
+  int acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+
+  auto compute = [&](int slot) {
+    const uint8_t* xsl = xs[slot];
+    const uint8_t* wsl = wsm[slot];
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      unsigned a[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int r = wrow + mi * 16 + g;
+        const uint2 lo = *reinterpret_cast<const uint2*>(xsl + off64(r, kk + 8 * t));
+        const uint2 hi = *reinterpret_cast<const uint2*>(xsl + off64(r + 8, kk + 8 * t));
+        a[mi][0] = lo.x;
+        a[mi][1] = hi.x;
+        a[mi][2] = lo.y;
+        a[mi][3] = hi.y;
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int r = wcol + ni * 8 + g;
+        unsigned b0, b1;
+        if (PACKED) {
+          // 4 packed bytes = k 8t..8t+7 of this step: byte j holds k = 2j
+          // (low nibble) and 2j + 1 (high nibble)
+          const unsigned p = *reinterpret_cast<const unsigned*>(wsl + off32(r, kk / 2 + 4 * t));
+          const unsigned ev = sext_nibbles(p & 0x0F0F0F0Fu);
+          const unsigned od = sext_nibbles((p >> 4) & 0x0F0F0F0Fu);
+          b0 = __byte_perm(ev, od, 0x5140);  // k 0, 1, 2, 3
+          b1 = __byte_perm(ev, od, 0x7362);  // k 4, 5, 6, 7
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(wsl + off64(r, kk + 8 * t));
+          b0 = v.x;
+          b1 = v.y;
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma_s8_16832(acc[mi][ni], a[mi], b0, b1);
+      }
+    }
+  };
+
+  // prologue: stages 0 .. STAGES-2 in flight (an empty group past the end);
+  // byte-staged x loads every prologue stage before it stores any
+  unsigned xr[STAGES - 1][XWORDS];
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < count) {
+      load_async(s0 + i, i);
+      if (!X16) load_x_bytes(s0 + i, xr[i]);
+    }
+    cp_async_commit();
+  }
+  if (!X16) {
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i)
+      if (i < count) store_x_bytes(i, xr[i]);
+  }
+  for (int i = 0; i < count; ++i) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage i have landed
+    __syncthreads();              // everyone's have, and slot (i-1) is free
+    const int j = i + STAGES - 1;
+    const bool ahead = j < count;
+    if (!X16 && ahead) load_x_bytes(s0 + j, xr[0]);
+    if (ahead) load_async(s0 + j, j % STAGES);
+    cp_async_commit();
+    compute(i % STAGES);
+    if (!X16 && ahead) store_x_bytes(j % STAGES, xr[0]);
+  }
+  cp_async_wait<0>();
+
+  // the epilogue's per-column constants, loaded before the split reduction
+  int bb[NI][2];
+  float sc[NI][2], sh[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int gn = n0 + wcol + ni * 8 + 2 * t;  // gn + 1 < Np always
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bb[ni][e] = bias[gn + e];
+      sc[ni][e] = qs[gn + e];
+      sh[ni][e] = qsh[gn + e];
+    }
+  }
+
+  if (splits > 1) {
+    // Exact split-K: every split writes its partial tile to its slab, in
+    // register order (coalesced); the last to arrive adds the others.
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    int* slab = ws + (size_t)tile * splits * NACC * THREADS + tid;
+    int* mine = slab + (size_t)z * NACC * THREADS;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) __stcg(mine + ((mi * NI + ni) * 4 + e) * THREADS, acc[mi][ni][e]);
+    __threadfence();  // the partials are visible device-wide before the ticket
     __syncthreads();
+    if (tid == 0) s_last = atomicAdd(tickets + tile, 1) == splits - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+#pragma unroll 4
+    for (int zz = 0; zz < splits; ++zz) {
+      if (zz == z) continue;
+      const int* src = slab + (size_t)zz * NACC * THREADS;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mi][ni][e] = (int)((unsigned)acc[mi][ni][e] +
+                                   (unsigned)__ldcg(src + ((mi * NI + ni) * 4 + e) * THREADS));
+    }
+    if (tid == 0) tickets[tile] = 0;  // ready for the next call on this stream
   }
 
   const float lo = out_uint8 ? 0.0f : -128.0f;
   const float hi = out_uint8 ? 255.0f : 127.0f;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty * TM + i;
-    if (gm >= M) continue;
+  for (int ni = 0; ni < NI; ++ni) {
+    const int gn = n0 + wcol + ni * 8 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      // int32 + int32 wraps, as the reference's int32 add does
-      const int a32 = (int)((unsigned)acc[i][j] + (unsigned)bias[gn]);
-      float f = __fmul_rn(__int2float_rn(a32), qs[gn]);
-      if (two_mul) f = __fmul_rn(f, qsh[gn]);
-      if (relu) f = fmaxf(f, 0.0f);
-      f = fminf(fmaxf(rintf(f), lo), hi);
-      out[(size_t)gm * N + gn] = (uint8_t)(int)f;
-    }
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + wrow + mi * 16 + g + 8 * h;
+        if (gm >= M || gn >= N) continue;
+        const uint8_t q0 =
+            requant(acc[mi][ni][2 * h], bb[ni][0], sc[ni][0], sh[ni][0], relu, two_mul, lo, hi);
+        const uint8_t q1 = requant(acc[mi][ni][2 * h + 1], bb[ni][1], sc[ni][1], sh[ni][1], relu,
+                                   two_mul, lo, hi);
+        uint8_t* o = out + (size_t)gm * N + gn;
+        if ((N & 1) == 0) {  // gm·N + gn is even: one 16-bit store
+          *reinterpret_cast<uint16_t*>(o) = (uint16_t)(q0 | (q1 << 8));
+        } else {
+          o[0] = q0;
+          if (gn + 1 < N) o[1] = q1;
+        }
+      }
   }
 }
 
-template <int BM, int TM, bool PACKED, bool WORDS>
-void launch_one(dim3 grid, cudaStream_t stream, const void* x, const void* w,
-                const void* bias, const void* qs, const void* qsh, void* out,
-                int M, int K, int N, int Kp, int relu, int two_mul,
-                int out_uint8) {
-  qmatmul_kernel<BM, TM, PACKED, WORDS><<<grid, THREADS, 0, stream>>>(
+template <int BM, int STAGES, bool PACKED, bool X16>
+cudaError_t launch_one(cudaStream_t stream, const void* x, const void* w, const void* bias,
+                       const void* qs, const void* qsh, void* out, void* ws, void* tickets,
+                       int M, int K, int N, int Kp, int Np, int splits, int relu,
+                       int two_mul, int out_uint8) {
+  const dim3 grid((M + BM - 1) / BM, Np / BN, splits);
+  qmatmul_kernel<BM, STAGES, PACKED, X16><<<grid, THREADS, 0, stream>>>(
       (const int8_t*)x, (const uint8_t*)w, (const int*)bias, (const float*)qs,
-      (const float*)qsh, (uint8_t*)out, M, K, N, Kp, relu, two_mul, out_uint8);
+      (const float*)qsh, (uint8_t*)out, (int*)ws, (int*)tickets, M, K, N, Kp, relu, two_mul,
+      out_uint8);
+  return cudaGetLastError();
 }
 
-template <int BM, int TM>
-cudaError_t launch(bool packed, const void* x, const void* w, const void* bias,
-                   const void* qs, const void* qsh, void* out, int M, int K,
-                   int N, int Kp, int Np, int relu, int two_mul, int out_uint8,
-                   cudaStream_t stream) {
-  dim3 grid(Np / BN, (M + BM - 1) / BM);
-  const bool words = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-#define REPRO_QMM_ARGS grid, stream, x, w, bias, qs, qsh, out, M, K, N, Kp, relu, two_mul, out_uint8
-  if (packed && words) launch_one<BM, TM, true, true>(REPRO_QMM_ARGS);
-  else if (packed) launch_one<BM, TM, true, false>(REPRO_QMM_ARGS);
-  else if (words) launch_one<BM, TM, false, true>(REPRO_QMM_ARGS);
-  else launch_one<BM, TM, false, false>(REPRO_QMM_ARGS);
+template <int BM, int STAGES>
+cudaError_t launch(bool packed, bool x16, cudaStream_t s, const void* x, const void* w,
+                   const void* bias, const void* qs, const void* qsh, void* out, void* ws,
+                   void* tickets, int M, int K, int N, int Kp, int Np, int splits, int relu,
+                   int two_mul, int out_uint8) {
+#define REPRO_QMM_ARGS s, x, w, bias, qs, qsh, out, ws, tickets, M, K, N, Kp, Np, splits, relu, two_mul, out_uint8
+  if (packed && x16) return launch_one<BM, STAGES, true, true>(REPRO_QMM_ARGS);
+  if (packed) return launch_one<BM, STAGES, true, false>(REPRO_QMM_ARGS);
+  if (x16) return launch_one<BM, STAGES, false, true>(REPRO_QMM_ARGS);
+  return launch_one<BM, STAGES, false, false>(REPRO_QMM_ARGS);
 #undef REPRO_QMM_ARGS
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) int8 row-major; w (Np, Kp) int8, or (Np, Kp/2) uint8 when packed;
-// bias (Np,) int32; qs, qsh (Np,) f32; out (M, N) int8/uint8 with N <= Np.
-// Kp % 64 == 0, Np % 64 == 0, 1 <= K <= Kp.  Returns cudaGetLastError().
-extern "C" int repro_qmatmul(const void* x, const void* w, const void* bias,
-                             const void* qs, const void* qsh, void* out, int M,
-                             int K, int N, int Kp, int Np, int bm, int packed,
-                             int relu, int two_mul, int out_uint8,
-                             void* stream) {
+// x (M, K) int8 row-major; w (Np, Kp) int8, or (Np, Kp/2) uint8 when packed,
+// 16-byte aligned; bias (Np,) int32; qs, qsh (Np,) f32; out (M, N) int8/uint8
+// with N <= Np.  Kp % 64 == 0, Np % 64 == 0, 1 <= K <= Kp, bm in {16, 64},
+// 1 <= splits <= Kp / 64.  x16 = 1 stages x by 16-byte copies and needs
+// K % 16 == 0 and x 16-byte aligned.  With splits > 1, ws holds
+// splits · ceil(M/bm) · (Np/64) · bm · 64 int32 and tickets ceil(M/bm) ·
+// (Np/64) int32, zero at entry and left zero.  Returns cudaGetLastError().
+extern "C" int repro_qmatmul(const void* x, const void* w, const void* bias, const void* qs,
+                             const void* qsh, void* out, void* ws, void* tickets, int M,
+                             int K, int N, int Kp, int Np, int bm, int splits, int x16,
+                             int packed, int relu, int two_mul, int out_uint8, void* stream) {
   if (M <= 0) return (int)cudaSuccess;
-  if (Kp % BK || Np % BN || K < 1 || K > Kp || N > Np)
+  if (Kp % BK || Np % BN || K < 1 || K > Kp || N < 1 || N > Np || splits < 1 ||
+      splits > Kp / BK || splits > 65535 || Np / BN > 65535 || (bm != 16 && bm != 64) ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      (x16 && (K % 16 || reinterpret_cast<uintptr_t>(x) % 16)) ||
+      (splits > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bm == 16)
-    return (int)launch<16, 1>(packed != 0, x, w, bias, qs, qsh, out, M, K, N,
-                              Kp, Np, relu, two_mul, out_uint8, s);
-  if (bm == 64)
-    return (int)launch<64, 4>(packed != 0, x, w, bias, qs, qsh, out, M, K, N,
-                              Kp, Np, relu, two_mul, out_uint8, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch<16, 6>(packed != 0, x16 != 0, s, x, w, bias, qs, qsh, out, ws, tickets,
+                              M, K, N, Kp, Np, splits, relu, two_mul, out_uint8);
+  return (int)launch<64, 4>(packed != 0, x16 != 0, s, x, w, bias, qs, qsh, out, ws, tickets, M,
+                            K, N, Kp, Np, splits, relu, two_mul, out_uint8);
 }

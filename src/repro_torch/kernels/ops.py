@@ -96,8 +96,9 @@ def bind_qmatmul_axes(shape: dict, bindings: Optional[dict], *, partial: bool = 
     template-build time: ints, named axes (``"N"``/``"S"``), ``None`` in the
     leading position for the legacy implicit batch, or ``None`` as a whole
     when nothing was known.  The flat M is the product of the lead dims with
-    ``bindings`` substituted; only ``m`` and the row tile ``bm`` are
-    computed — the parameter tensors are the template's.  ``partial=True``
+    ``bindings`` substituted; only ``m``, the row tile ``bm`` and the number
+    of K splits ``splits`` are computed — the parameter tensors are the
+    template's.  ``partial=True``
     substitutes the given axes but keeps the record open."""
     bindings = bindings or {}
     lead = shape.get("lead")
@@ -130,19 +131,27 @@ def bind_qmatmul_axes(shape: dict, bindings: Optional[dict], *, partial: bool = 
     bound = {key: v for key, v in shape.items() if key != "lead"}
     bound["m"] = m
     bound["bm"] = _qmm.choose_bm(m)
+    bound["splits"] = _qmm.choose_splits(m, shape["kp"], shape["np"], bound["bm"])
     return bound
 
 
 def with_tiles(shape: dict, *, bm: Optional[int] = None, bk: Optional[int] = None,
-               bn: Optional[int] = None) -> dict:
+               bn: Optional[int] = None, splits: Optional[int] = None) -> dict:
     """A copy of a *bound* qmatmul shape record with tile overrides.  The
     CUDA kernel is compiled for one K stage and column tile (``BK``/``BN``)
-    and the row tiles in ``SUPPORTED_BM``, so only those are legal."""
+    and the row tiles in ``SUPPORTED_BM``, and each K split holds whole
+    stages (``1 <= splits <= kp // BK``), so only those are legal."""
     out = dict(shape)
     if bm is not None:
         if bm not in _qmm.SUPPORTED_BM:
             raise ValueError(f"bm={bm} is not one of the kernel's row tiles {_qmm.SUPPORTED_BM}")
         out["bm"] = int(bm)
+    if splits is not None:
+        if isinstance(splits, bool) or not isinstance(splits, int) \
+                or not 1 <= splits <= out["kp"] // _qmm.BK:
+            raise ValueError(f"splits={splits!r}: each K split holds whole {_qmm.BK}-byte "
+                             f"stages, so 1 <= splits <= {out['kp'] // _qmm.BK}")
+        out["splits"] = int(splits)
     if bk is not None and bk != _qmm.BK:
         raise ValueError(f"bk={bk}: the kernel stages K {_qmm.BK} bytes at a time")
     if bn is not None and bn != _qmm.BN:
@@ -213,7 +222,7 @@ def quantized_matmul_planned(
     kernel = _qmm.qmatmul_packed if shape.get("bits", 8) == 4 else _qmm.qmatmul
     out = kernel(
         x2, w2, b2, qs2, qsh2, n=n, out_dtype=out_dtype, relu=relu, two_mul=two_mul,
-        bm=shape["bm"],
+        bm=shape["bm"], splits=shape["splits"],
     )
     return out.reshape(tuple(lead) + (n,))
 
@@ -310,5 +319,5 @@ def quantized_conv2d_planned(
     oh, ow = conv_out_hw(x_q.shape[2], x_q.shape[3], shape["kh"], shape["kw"],
                          shape["strides"], shape["pads"])
     out = _qmm.qmatmul(cols, w2, b2, qs2, qsh2, n=shape["n"], out_dtype=out_dtype,
-                       relu=relu, two_mul=two_mul, bm=shape["bm"])
+                       relu=relu, two_mul=two_mul, bm=shape["bm"], splits=shape["splits"])
     return out.view(n_img, oh, ow, shape["n"]).permute(0, 3, 1, 2).contiguous()

@@ -1,5 +1,6 @@
 """Fused pre-quantized matmul: the hand-written CUDA kernel
-(``csrc/qmatmul.cu``), its plain PyTorch version and its launch counters.
+(``csrc/qmatmul.cu``), its plain PyTorch version, the split-K planner and
+the launch counters.
 
 Replaces ``repro/kernels/qmatmul.py::qmatmul`` (int8 weights) and
 ``::qmatmul_packed`` (int4 weights, two nibbles per byte).  Both compute
@@ -15,8 +16,20 @@ kernel's 64-byte K stage and 64-column tile); the activation ``x`` arrives
 unpadded ``(M, K)`` — any K >= 1, at any byte alignment — and the kernel
 masks the ragged M and K edges itself.
 
-What bounds the kernel on an H100 and what its design does about it is in
-the note at the top of ``csrc/qmatmul.cu``.
+A launch's route is chosen from its shape and recorded, never because
+another route failed: the row tile ``bm`` (16: the decode route, 64: the
+tile route) and the number of K splits ``splits`` come from the bound shape
+record (:func:`choose_bm`, :func:`choose_splits`); the staging of ``x``
+(16-byte ``cp.async`` copies, or bytes staged by the threads) from K and the
+pointer at launch (:func:`route`).  Every route runs the same int8
+tensor-core mainloop.  What bounds the kernel on an H100 and what its
+design does about it is in the note at the top of ``csrc/qmatmul.cu``.
+
+One fused call is one kernel launch and one device kernel, split or not:
+the split reduction happens inside it (the last split block of a tile runs
+the epilogue).  Its int32 workspace and per-tile tickets are allocated by
+the wrapper, once per device and stream, and grown when a call needs more
+(the tickets by ``torch.zeros``; each call leaves them zero).
 
 A wrapper runs the plain version only for tensors on the CPU (that is how
 the CPU tests reach the planned path); for CUDA tensors it launches the
@@ -25,7 +38,8 @@ kernel or raises.  :data:`LAUNCHES` counts kernel launches, nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import threading
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -37,11 +51,22 @@ from . import ref as _ref
 BK, BN = 64, 64
 SUPPORTED_BM = (16, 64)
 BM = 64
+#: Shared-memory ring depth of each route (``csrc/qmatmul.cu``).
+STAGES = {16: 6, 64: 4}
+#: The tensor-core instruction of every route.
+INSTRUCTION = "mma.sync.m16n8k32.s32.s8.s8.s32"
+#: Streaming multiprocessors of an H100: the split planner aims for twice
+#: as many blocks.
+NUM_SMS = 132
 
 #: Kernel launches since the last reset, by kernel name.
 LAUNCHES: Dict[str, int] = {"qmatmul": 0, "qmatmul_packed": 0}
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+
+#: Split-K scratch, (int32 workspace, int32 tickets), by (device, stream).
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def choose_bm(m) -> int:
@@ -57,6 +82,53 @@ def choose_tiles(m, k: int, n: int):
     """(bm, bk, bn) for a problem shape at plan time.  bk and bn are the
     kernel's fixed stage and tile widths; only bm depends on M."""
     return choose_bm(m), BK, BN
+
+
+def choose_splits(m, kp: int, np_: int, bm: int, bn: int = BN) -> int:
+    """The number of K splits for a bound shape: enough that output tiles ×
+    splits reaches about ``2 × NUM_SMS`` blocks, each split holding whole
+    ``BK`` stages (so at most ``kp // BK`` splits); 1 where the tiles alone
+    already fill the card, and 1 when M is unknown."""
+    if not m:
+        return 1
+    tiles = -(-int(m) // bm) * (np_ // bn)
+    if tiles >= NUM_SMS:
+        return 1
+    return max(1, min(kp // BK, -(-2 * NUM_SMS // tiles)))
+
+
+def split_ranges(kp: int, splits: int) -> List[Tuple[int, int]]:
+    """The ``[k0, k1)`` range of each split, as the kernel computes it:
+    split z owns stages ``[z·S // splits, (z+1)·S // splits)`` of the
+    ``S = kp // BK``."""
+    s = kp // BK
+    if kp % BK or not 1 <= splits <= s:
+        raise ValueError(f"splits={splits} for Kp={kp}: need 1 <= splits <= Kp / {BK}")
+    return [(BK * (z * s // splits), BK * ((z + 1) * s // splits)) for z in range(splits)]
+
+
+def route(x_q: torch.Tensor, bm: int, splits: int) -> Dict[str, object]:
+    """The route a launch on ``x_q`` takes: the instruction, the tiles, the
+    splits, the ring depth and the staging of x — 16-byte ``cp.async``
+    copies when K % 16 == 0 and x is 16-byte aligned, else bytes staged by
+    the threads into the same shared-memory layout."""
+    k = x_q.shape[-1]
+    x16 = k % 16 == 0 and x_q.data_ptr() % 16 == 0
+    return {"instruction": INSTRUCTION, "bm": bm, "bn": BN, "splits": splits,
+            "stages": STAGES[bm], "staging": "cp.async16" if x16 else "bytes"}
+
+
+def _scratch(device: torch.device, stream: int, ws_numel: int, tiles: int):
+    """The split-K workspace and tickets for one stream, grown to size."""
+    key = (device.index, stream)
+    with _SCRATCH_LOCK:
+        ws, tickets = _SCRATCH.get(key, (None, None))
+        if ws is None or ws.numel() < ws_numel:
+            ws = torch.empty(ws_numel, dtype=torch.int32, device=device)
+        if tickets is None or tickets.numel() < tiles:
+            tickets = torch.zeros(tiles, dtype=torch.int32, device=device)
+        _SCRATCH[key] = (ws, tickets)
+    return ws, tickets
 
 
 def unpack_int4_nk(w_p: torch.Tensor) -> torch.Tensor:
@@ -80,9 +152,10 @@ def qmatmul_plain(
     relu: bool = False,
     two_mul: bool = True,
     bm: int = BM,
+    splits: int = 1,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`qmatmul`: same operands, same
-    result ``(M, n)``."""
+    result ``(M, n)``; the tiles and splits do not change it."""
     k = x_q.shape[1]
     return _ref.qmatmul_ref(
         x_q, w_q[:n, :k].t(), bias_q[0, :n], quant_scale[0, :n], quant_shift[0, :n],
@@ -102,15 +175,17 @@ def qmatmul_packed_plain(
     relu: bool = False,
     two_mul: bool = True,
     bm: int = BM,
+    splits: int = 1,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`qmatmul_packed`."""
     return qmatmul_plain(
         x_q, unpack_int4_nk(w_p), bias_q, quant_scale, quant_shift,
-        n=n, out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm,
+        n=n, out_dtype=out_dtype, relu=relu, two_mul=two_mul,
     )
 
 
-def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dtype, relu, two_mul, bm):
+def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dtype, relu,
+            two_mul, bm, splits):
     if x_q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on a CUDA device or the CPU, got {x_q.device}")
     m, k = x_q.shape
@@ -121,25 +196,36 @@ def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dt
         raise ValueError(f"{name}: want int8 x and {want_w} w, got {x_q.dtype} and {w.dtype}")
     if out_dtype not in (torch.int8, torch.uint8):
         raise ValueError(f"{name}: out_dtype must be int8 or uint8, got {out_dtype}")
-    if kp % BK or np_ % BN or not 1 <= k <= kp or n > np_ or bm not in SUPPORTED_BM:
+    if kp % BK or np_ % BN or not 1 <= k <= kp or not 1 <= n <= np_ \
+            or bm not in SUPPORTED_BM or not 1 <= splits <= kp // BK:
         raise ValueError(
             f"{name}: shapes the kernel does not take: x {tuple(x_q.shape)}, w "
-            f"{tuple(w.shape)}, n={n}, bm={bm} (need Kp % {BK} == 0, Np % {BN} == 0, "
-            f"1 <= K <= Kp, bm in {SUPPORTED_BM})"
+            f"{tuple(w.shape)}, n={n}, bm={bm}, splits={splits} (need Kp % {BK} == 0, "
+            f"Np % {BN} == 0, 1 <= K <= Kp, 1 <= n <= Np, bm in {SUPPORTED_BM}, "
+            f"1 <= splits <= Kp / {BK})"
         )
     ops = (x_q, w, bias_q, quant_scale, quant_shift)
     if any(t.device != x_q.device or not t.is_contiguous() for t in ops):
         raise ValueError(f"{name}: operands must be contiguous and on one device")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name}: the weight must be 16-byte aligned")
     if bias_q.dtype != torch.int32 or bias_q.numel() != np_ or quant_scale.numel() != np_ \
             or quant_shift.numel() != np_:
         raise ValueError(f"{name}: bias/scales must be ({np_},) rows, bias int32")
     out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    x16 = route(x_q, bm, splits)["staging"] == "cp.async16"
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    ws_ptr = tickets_ptr = None
+    if splits > 1 and m > 0:
+        tiles = -(-m // bm) * (np_ // BN)
+        ws, tickets = _scratch(x_q.device, stream, splits * tiles * bm * BN, tiles)
+        ws_ptr, tickets_ptr = ws.data_ptr(), tickets.data_ptr()
     fn = _build.function("qmatmul", "repro_qmatmul", _ARGTYPES)
     rc = fn(
         x_q.data_ptr(), w.data_ptr(), bias_q.data_ptr(), quant_scale.data_ptr(),
-        quant_shift.data_ptr(), out.data_ptr(), m, k, n, kp, np_, bm, int(packed),
-        int(relu), int(two_mul), int(out_dtype == torch.uint8),
-        torch.cuda.current_stream(x_q.device).cuda_stream,
+        quant_shift.data_ptr(), out.data_ptr(), ws_ptr, tickets_ptr, m, k, n, kp, np_, bm,
+        splits, int(x16), int(packed), int(relu), int(two_mul), int(out_dtype == torch.uint8),
+        stream,
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
@@ -148,7 +234,7 @@ def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dt
 
 def qmatmul(x_q, w_q, bias_q, quant_scale, quant_shift, *, n: int,
             out_dtype: torch.dtype = torch.int8, relu: bool = False,
-            two_mul: bool = True, bm: int = BM) -> torch.Tensor:
+            two_mul: bool = True, bm: int = BM, splits: int = 1) -> torch.Tensor:
     """Fused int8 matmul ``(M, K) × (Np, Kp)ᵀ → (M, n)`` (operands as
     :func:`qmatmul_plain` takes them): the CUDA kernel on the card, the
     plain version on the CPU."""
@@ -156,16 +242,16 @@ def qmatmul(x_q, w_q, bias_q, quant_scale, quant_shift, *, n: int,
         return qmatmul_plain(x_q, w_q, bias_q, quant_scale, quant_shift, n=n,
                              out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm)
     return _launch("qmatmul", False, x_q, w_q, bias_q, quant_scale, quant_shift, n=n,
-                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm)
+                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm, splits=splits)
 
 
 def qmatmul_packed(x_q, w_p, bias_q, quant_scale, quant_shift, *, n: int,
                    out_dtype: torch.dtype = torch.int8, relu: bool = False,
-                   two_mul: bool = True, bm: int = BM) -> torch.Tensor:
+                   two_mul: bool = True, bm: int = BM, splits: int = 1) -> torch.Tensor:
     """Fused packed-int4 matmul ``(M, K) × (Np, Kp // 2)`` nibble pairs →
     ``(M, n)``: the CUDA kernel on the card, the plain version on the CPU."""
     if x_q.device.type == "cpu":
         return qmatmul_packed_plain(x_q, w_p, bias_q, quant_scale, quant_shift, n=n,
                                     out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm)
     return _launch("qmatmul_packed", True, x_q, w_p, bias_q, quant_scale, quant_shift, n=n,
-                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm)
+                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm, splits=splits)

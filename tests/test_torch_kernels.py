@@ -310,3 +310,177 @@ def test_tile_records_follow_the_kernel():
     for bad in (dict(bm=32), dict(bk=128), dict(bn=32)):
         with pytest.raises(ValueError):
             ops.with_tiles(bound, **bad)
+
+
+def test_library_name_follows_headers(monkeypatch, tmp_path):
+    """A library is named by its source and every shared header: an edit to
+    a ``csrc/*.cuh`` the source includes builds a new library."""
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    headers = sorted(tmp_path.glob("*.cuh"))
+    assert headers and b'#include "ptx.cuh"' in (tmp_path / "qmatmul.cu").read_bytes()
+    before = _build.library_path("qmatmul")
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
+    after = _build.library_path("qmatmul")
+    assert after != before and after.parent == before.parent
+    (tmp_path / "qmatmul.cu").write_bytes((tmp_path / "qmatmul.cu").read_bytes() + b"\n")
+    assert _build.library_path("qmatmul") not in (before, after)
+
+
+# Every main-path qmatmul shape (M, K, N): the token path's decode (4 slots)
+# and prefill (4 x 128) projections, slice A's layers at batch 64, slice B's
+# conv GEMMs (M = 16·OH·OW, K = C·kH·kW) and FC head at batch 16
+MAIN_PATH_GEMMS = [
+    (4, 2048, 6144), (4, 2048, 2048), (4, 6144, 2048),
+    (512, 2048, 6144), (512, 2048, 2048), (512, 6144, 2048),
+    (64, 2048, 6144), (64, 6144, 6144), (64, 6144, 2048),
+    (200704, 147, 64), (50176, 576, 128), (12544, 1152, 256), (3136, 2304, 512),
+    (784, 4608, 512), (16, 25088, 1000),
+]
+
+
+@pytest.mark.parametrize("m,k,n", MAIN_PATH_GEMMS)
+def test_split_planner_fills_the_card(m, k, n):
+    """Output tiles × splits reach about two blocks per SM where K has the
+    stages for it; 1 split where the tiles alone fill the card; the splits
+    cover [0, Kp) exactly once, in whole K stages."""
+    _, shape = ops.template_qmatmul_params(np.zeros((k, n), np.int8), None, 1.0, 1.0)
+    bound = ops.bind_qmatmul_axes({**shape, "lead": (m,)}, None)
+    bm, splits, kp = bound["bm"], bound["splits"], bound["kp"]
+    assert splits == qmatmul.choose_splits(m, kp, bound["np"], bm)
+    tiles = -(-m // bm) * (bound["np"] // qmatmul.BN)
+    stages = kp // qmatmul.BK
+    if tiles >= qmatmul.NUM_SMS:
+        assert splits == 1
+    else:
+        assert 1 < splits <= stages
+        assert tiles * splits >= min(2 * qmatmul.NUM_SMS, tiles * stages)
+        assert tiles * (splits - 1) < 2 * qmatmul.NUM_SMS  # no more splits than that needs
+    ranges = qmatmul.split_ranges(kp, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0 and ranges[-1][1] == kp
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(k0 % qmatmul.BK == 0 and k1 > k0 for k0, k1 in ranges)
+
+
+def test_split_planner_edges():
+    """Unknown M plans one split; a decode GEMM whose K holds fewer stages
+    than the card wants takes one split per stage."""
+    assert qmatmul.choose_splits(None, 2048, 2048, 64) == 1
+    assert qmatmul.choose_splits(4, 128, 64, 16) == 2  # 1 tile, 2 stages
+    assert qmatmul.choose_splits(4, 64, 64, 16) == 1
+    with pytest.raises(ValueError):
+        qmatmul.split_ranges(128, 3)
+    with pytest.raises(ValueError):
+        qmatmul.split_ranges(100, 1)
+
+
+def _epilogue_np(acc, b, qs, qsh, relu, two_mul, out):
+    """The fused epilogue on an int32 sum, in numpy: the wrapping int32 bias
+    add, float32 products (IEEE round to nearest), ReLU, round half to even,
+    clip."""
+    a = (acc.view(np.uint32) + np.asarray(b, np.int32).view(np.uint32)).view(np.int32)
+    f = a.astype(np.float32) * np.asarray(qs, np.float32)
+    if two_mul:
+        f = f * np.asarray(qsh, np.float32)
+    if relu:
+        f = np.maximum(f, np.float32(0))
+    info = np.iinfo(out)
+    return np.clip(np.rint(f), info.min, info.max).astype(out)
+
+
+# (M, K, N, bits, relu, two_mul, out, per_channel): small shapes the
+# planner splits, both lanes, both output dtypes, K off the stages
+SPLIT_CASES = [
+    (5, 640, 70, 8, False, True, "int8", True),
+    (3, 200, 64, 8, True, False, "uint8", False),
+    (17, 384, 130, 4, False, True, "int8", True),
+    (70, 1024, 40, 4, True, True, "uint8", False),
+    (16, 2000, 100, 8, False, True, "int8", False),
+]
+
+
+@pytest.mark.parametrize("m,k,n,bits,relu,two_mul,out,per_channel", SPLIT_CASES)
+def test_split_partition_is_exact(m, k, n, bits, relu, two_mul, out, per_channel):
+    """int32 partial sums over the planner's K ranges, added in any order
+    and passed through the epilogue once, equal repro's qmatmul /
+    qmatmul_packed (Pallas, interpret mode) and its oracle."""
+    x, w, b, qs, qsh = _matmul_inputs(m, k, n, bits, per_channel, seed=m * 31 + k + n)
+    jdt = jnp.int8 if out == "int8" else jnp.uint8
+    want_ref = np.asarray(jref.qmatmul_ref(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(qs), jnp.asarray(qsh),
+        out_dtype=jdt, relu=relu, two_mul=two_mul,
+    ))
+    jconsts, jshape = jops.specialize_qmatmul_params(w, b, qs, qsh, m=m, weight_bits=bits)
+    want_pallas = np.asarray(jops.quantized_matmul_planned(
+        jnp.asarray(x), *jconsts, jshape, out_dtype=jdt, relu=relu, two_mul=two_mul,
+        interpret=True,
+    ))
+    np.testing.assert_array_equal(want_pallas, want_ref)
+
+    consts, shape = ops.specialize_qmatmul_params(w, b, qs, qsh, m=m, weight_bits=bits)
+    splits, kp = shape["splits"], shape["kp"]
+    assert splits > 1
+    w_nk = consts[0] if bits == 8 else qmatmul.unpack_int4_nk(consts[0])
+    w_nk = w_nk.numpy().astype(np.int32)  # (Np, Kp), zero past K
+    xp = np.zeros((m, kp), np.int32)
+    xp[:, :k] = x
+    parts = [xp[:, k0:k1] @ w_nk[:n, k0:k1].T for k0, k1 in qmatmul.split_ranges(kp, splits)]
+    order = np.random.default_rng(m + n).permutation(splits)
+    acc = np.zeros((m, n), np.int32)
+    for z in order:
+        acc = (acc.view(np.uint32) + parts[z].astype(np.int32).view(np.uint32)).view(np.int32)
+    got = _epilogue_np(acc, b, qs, qsh, relu, two_mul, np.dtype(out))
+    np.testing.assert_array_equal(got, want_ref)
+    # the planned call on the CPU takes the same record to the plain version
+    tdt = torch.int8 if out == "int8" else torch.uint8
+    planned = ops.quantized_matmul_planned(torch.from_numpy(x), *consts, shape, out_dtype=tdt,
+                                           relu=relu, two_mul=two_mul)
+    np.testing.assert_array_equal(planned.numpy(), want_ref)
+
+
+def test_with_tiles_refuses_illegal_splits():
+    """Each split holds whole K stages: 1 <= splits <= Kp / BK, an int."""
+    _, shape = ops.template_qmatmul_params(np.zeros((300, 70), np.int8), None, 1.0, 1.0)
+    bound = ops.bind_qmatmul_axes({**shape, "lead": (4,)}, None)
+    assert (bound["kp"], bound["bm"], bound["splits"]) == (320, 16, 5)
+    assert ops.with_tiles(bound, splits=1)["splits"] == 1
+    assert ops.with_tiles(bound, splits=5)["splits"] == 5
+    for bad in (0, 6, -1, 2.0, True, "2"):
+        with pytest.raises(ValueError, match="splits"):
+            ops.with_tiles(bound, splits=bad)
+    assert ops.with_tiles(bound, bm=64, splits=2) == {**bound, "bm": 64, "splits": 2}
+
+
+def test_route_follows_k_and_alignment():
+    """x goes by 16-byte copies when K % 16 == 0 and x is 16-byte aligned,
+    else by bytes the threads stage; the record gives bm and splits."""
+    big = torch.zeros(4 * 2048 + 16, dtype=torch.int8)
+    assert big.data_ptr() % 16 == 0
+    aligned, shifted = big[:4 * 2048].view(4, 2048), big[1:1 + 4 * 2048].view(4, 2048)
+    r = qmatmul.route(aligned, 16, 9)
+    assert r == {"instruction": qmatmul.INSTRUCTION, "bm": 16, "bn": 64, "splits": 9,
+                 "stages": qmatmul.STAGES[16], "staging": "cp.async16"}
+    assert qmatmul.route(shifted, 16, 9)["staging"] == "bytes"
+    assert qmatmul.route(torch.zeros((77, 147), dtype=torch.int8), 64, 1)["staging"] == "bytes"
+
+
+def test_plan_printout_shows_splits():
+    """A specialized qmatmul step renders its K splits, in the plan and in
+    the provenance's tile record."""
+    from repro_torch.core.compile import compile_model
+    from repro_torch.core.toolchain import MLPSpec, quantize_mlp
+
+    rng = np.random.default_rng(3)
+    spec = MLPSpec(weights=[rng.normal(size=(640, 96)).astype(np.float32),
+                            rng.normal(size=(96, 10)).astype(np.float32)],
+                   biases=[np.zeros(96, np.float32), np.zeros(10, np.float32)],
+                   activations=["Relu", None])
+    model = quantize_mlp(spec, rng.normal(size=(64, 640)).astype(np.float32), name="split_mlp")
+    cm = compile_model(model, backend="cuda", device="cpu", batch="dynamic")
+    plan, _ = cm.specialized(4)
+    steps = [s for s in plan.steps if s.kernel == "qlinear_matmul"]
+    assert [s.params["shape"]["splits"] for s in steps] == [10, 2]
+    text = plan.pretty()
+    assert "splits=10" in text and "splits=2" in text
+    assert "m=4,bm=16,bk=64,bn=64,splits=10" in plan.pretty(verbose=True)
