@@ -14,11 +14,17 @@ Drives the port's main path on one CUDA card and fails loudly:
    bound; each matmul row prints the route it took (instruction, tiles, K
    splits, staging of x) and, where ``torch._int_mm`` takes the shape, that
    call's time for the int32 GEMM body alone (``gemm_library_ms``, a
-   yardstick the port never calls);
+   yardstick the port never calls); qattention also runs on the token
+   path's per-head q/k/v views (head ``ATTN_HEAD`` of buffers of width
+   3·``ATTN_D``) at every cluster size at decode, each row with its
+   cluster size and threads per block;
 4. token path — the compiled token path at Qwen3-1.7B widths (vocab 151936,
    d_model 2048, 16 heads of 128, d_ff 6144; depth cut to ``N_LAYERS``),
    built twice from one seed — backend ``cuda`` and backend ``ref`` — and
    held identical through prefill, decode steps and ServeEngine generation;
+   then one decode step traced with ``torch.profiler`` (device time by
+   kernel, the card's idle share), which fails if any per-head q/k/v view
+   was copied;
 5. slice A — the paper's Tanh/Sigmoid MLP (§4/§6; fp16 tanh flow) at the
    feed-forward widths 2048 → 6144 → 6144 → 2048, served by
    ``CompiledModelServer`` on both backends, responses identical and equal
@@ -125,6 +131,10 @@ EDGE_K, EDGE_M, EDGE_N = (10, 27, 147), (4, 77), 64
 #: a ragged tile whose numel is not a multiple of 16
 LUT_SHAPES = [(1, 6144), (64, 6144), (4096, 6144), (37, 2051)]
 ATTN_SHAPES = [(1, 512), (1, 77), (128, 128), (77, 96)]  # (S, T) at B=4, dh=128
+#: the token path's per-head views: (S, T) at decode (every cluster size)
+#: and prefill, cut at head ATTN_HEAD from buffers of width 3·ATTN_D
+ATTN_VIEW_SHAPES = [(1, 512), (1, 77), (128, 128)]
+ATTN_D, ATTN_HEAD = 2048, 5
 DECODE_M = 4  # rows of a decode step at 4 slots
 
 
@@ -232,12 +242,96 @@ def _check_lut(flush, rows, worst, x, lut, tag):
         f"{lms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
 
 
+def attention_constants(device):
+    """The exp LUT and the token path's attention scalars (dh = 128)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.patterns import ATTN_BIG, ATTN_LUT_SCALE, ATTN_P_SCALE, build_exp_lut
+
+    lut = torch.from_numpy(build_exp_lut()).to(device)
+    scal = dict(qk_scale=float(np.float32(0.05 * 0.05 / np.sqrt(128))), big=ATTN_BIG,
+                lut_scale=ATTN_LUT_SCALE, p_scale=ATTN_P_SCALE,
+                rescale=float(np.float32(1 / ATTN_P_SCALE)))
+    return lut, scal
+
+
+def _attention_mask(rng, b, s, t):
+    import numpy as np
+
+    if s == 1:  # decode: keys up to a per-row position are valid
+        pos = rng.integers(0, t, (b,))
+        return (np.arange(t)[None, None, :] <= pos[:, None, None]).astype(np.float32)
+    # prefill: causal over a right-aligned window
+    return np.broadcast_to(np.tril(np.ones((s, t), np.float32), t - s), (b, s, t)).copy()
+
+
+def attention_operands(rng, b, s, t, dh, device):
+    """Contiguous q (B, S, dh), k and v (B, T, dh) and mask (B, S, T)."""
+    import torch
+
+    return (torch.from_numpy(_int8(rng, (b, s, dh))).to(device),
+            torch.from_numpy(_int8(rng, (b, t, dh))).to(device),
+            torch.from_numpy(_int8(rng, (b, t, dh))).to(device),
+            torch.from_numpy(_attention_mask(rng, b, s, t)).to(device))
+
+
+def attention_head_views(rng, b, s, t, dh, d_model, head, device):
+    """q, k and v as the token path hands them to the kernel: per-head
+    slices (feature columns head·dh onward) of a (B, S, 3·D) query buffer and
+    a (B, T, 3·D) key/value buffer; a prefill mask is one (S, T) causal mask
+    broadcast over the batch (batch stride 0)."""
+    import torch
+
+    qb = torch.from_numpy(_int8(rng, (b, s, 3 * d_model))).to(device)
+    kvb = torch.from_numpy(_int8(rng, (b, t, 3 * d_model))).to(device)
+    lo = head * dh
+    q = qb[:, :, lo:lo + dh]
+    k = kvb[:, :, d_model + lo:d_model + lo + dh]
+    v = kvb[:, :, 2 * d_model + lo:2 * d_model + lo + dh]
+    mask = torch.from_numpy(_attention_mask(rng, b if s == 1 else 1, s, t)).to(device)
+    return q, k, v, mask.expand(b, s, t)
+
+
+def attention_bound(b, s, t, dh):
+    """Each input read once (q, k, v, the mask, the LUT), the output written
+    once; 4·B·S·T·dh int8 operations (QKᵀ and PV)."""
+    return bound_ms(b * s * dh * 2 + 2 * b * t * dh + 4 * b * s * t + 256, 4.0 * b * s * t * dh)
+
+
+def _check_attention(flush, rows, worst, ops, lut, scal, cluster, tag):
+    """Hold the kernel at ``cluster`` (None: as planned) against the plain
+    version on ``ops``, then time both."""
+    from repro_torch.kernels import qattention as qatt
+
+    q, k, v, mask = ops
+    b, s, dh = q.shape
+    t = k.shape[1]
+    c = qatt.choose_cluster(b * s, t, dh) if cluster is None else cluster
+    route = {"cluster": c, "threads": qatt.threads_for(b * s, t, c), "keys_per_block": qatt.keys_per_block(t, c),
+             "planned": cluster is None or c == qatt.choose_cluster(b * s, t, dh)}
+    err = _max_err(qatt.qattention(q, k, v, mask, lut, cluster=c, **scal),
+                   qatt.qattention_plain(q, k, v, mask, lut, **scal))
+    worst["qattention"] = max(worst["qattention"], err)
+    if err:
+        raise AssertionError(f"qattention {tag} cluster={c}: max |kernel - plain| = {err}")
+    b_ms, b_by = attention_bound(b, s, t, dh)
+    ms = time_ms(lambda: qatt.qattention(q, k, v, mask, lut, cluster=c, **scal), flush)
+    pms = time_ms(lambda: qatt.qattention_plain(q, k, v, mask, lut, **scal), flush)
+    if cluster is not None:
+        tag += f",C={c}"
+    rows.append(dict(kernel="qattention", shape=tag, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                     bound_by=b_by, max_abs_err=err, route=route))
+    log(f"  qattention      {tag}: exact, {ms:.4f} ms (plain {pms:.4f} ms, bound {b_ms:.3g} ms "
+        f"by {b_by}) [cluster={c}{' planned' if route['planned'] else ''} "
+        f"threads={route['threads']} keys/block={route['keys_per_block']}]")
+
+
 def check_kernels(device, flush, rows):
     import numpy as np
     import torch
 
     from repro_torch.kernels import qattention as qatt
-    from repro_torch.core.patterns import ATTN_BIG, ATTN_LUT_SCALE, ATTN_P_SCALE, build_exp_lut
 
     rng = np.random.default_rng(0)
     worst = {"qmatmul": 0, "qmatmul_packed": 0, "qattention": 0, "qact_lut": 0}
@@ -262,33 +356,19 @@ def check_kernels(device, flush, rows):
     lut = torch.from_numpy(rng.integers(0, 256, (256,)).astype(np.uint8)).to(device)
     _check_lut(flush, rows, worst, big[1:].view(37, 2051), lut, "M=37,N=2051,uint8,offset1")
 
-    lut = torch.from_numpy(build_exp_lut()).to(device)
-    scal = dict(qk_scale=float(np.float32(0.05 * 0.05 / np.sqrt(128))), big=ATTN_BIG,
-                lut_scale=ATTN_LUT_SCALE, p_scale=ATTN_P_SCALE, rescale=float(np.float32(1 / ATTN_P_SCALE)))
+    lut, scal = attention_constants(device)
     b, dh = 4, 128
     for s, t in ATTN_SHAPES:
-        q = torch.from_numpy(_int8(rng, (b, s, dh))).to(device)
-        kk = torch.from_numpy(_int8(rng, (b, t, dh))).to(device)
-        v = torch.from_numpy(_int8(rng, (b, t, dh))).to(device)
-        if s == 1:  # decode: keys up to a per-row position are valid
-            pos = rng.integers(0, t, (b,))
-            mk = (np.arange(t)[None, None, :] <= pos[:, None, None]).astype(np.float32)
-        else:  # prefill: causal over a right-aligned window
-            mk = np.broadcast_to(np.tril(np.ones((s, t), np.float32), t - s), (b, s, t)).copy()
-        mask = torch.from_numpy(mk).to(device)
-        err = _max_err(qatt.qattention(q, kk, v, mask, lut, **scal),
-                       qatt.qattention_plain(q, kk, v, mask, lut, **scal))
-        worst["qattention"] = max(worst["qattention"], err)
-        if err:
-            raise AssertionError(f"qattention B={b} S={s} T={t}: max |kernel - plain| = {err}")
-        nbytes = b * s * dh * 2 + 2 * b * t * dh + 4 * b * s * t + 256
-        b_ms, b_by = bound_ms(nbytes, 4.0 * b * s * t * dh)
-        ms = time_ms(lambda: qatt.qattention(q, kk, v, mask, lut, **scal), flush)
-        pms = time_ms(lambda: qatt.qattention_plain(q, kk, v, mask, lut, **scal), flush)
-        rows.append(dict(kernel="qattention", shape=f"B={b},S={s},T={t},dh={dh}",
-                         ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
-        log(f"  qattention      B={b} S={s:3d} T={t:3d} dh={dh}: exact, {ms:.4f} ms "
-            f"(plain {pms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
+        ops = attention_operands(rng, b, s, t, dh, device)
+        _check_attention(flush, rows, worst, ops, lut, scal, None, f"B={b},S={s},T={t},dh={dh}")
+    # the token path's operands: per-head views of head ATTN_HEAD of a
+    # (B, ., 3·D) buffer, at every cluster size at decode
+    for s, t in ATTN_VIEW_SHAPES:
+        ops = attention_head_views(rng, b, s, t, dh, ATTN_D, ATTN_HEAD, device)
+        sizes = [c for c in qatt.CLUSTER_SIZES if c <= t] if s == 1 else [None]
+        for c in sizes:
+            _check_attention(flush, rows, worst, ops, lut, scal, c,
+                             f"B={b},S={s},T={t},dh={dh},views,h={ATTN_HEAD}")
     return worst
 
 
@@ -393,13 +473,47 @@ def run_slice(device):
     if [len(g) for g in got["generated"]] != [16] * 4:
         raise AssertionError(f"engine generated {[len(g) for g in got['generated']]} tokens, want 16 each")
     log("  prefill (4,128), 8 decode steps at (4,512) and 4 engine requests: cuda == ref, bit for bit")
+    profiled, head_copies = profile_decode_step(
+        tps["cuda"], dec_toks[0], np.full((n,), plen), n, s_max, cfg.d_head)
+    if head_copies:
+        raise AssertionError(f"the decode step copied {len(head_copies)} per-head q/k/v views: "
+                             f"{head_copies[:4]}")
     perf = dict(
+        decode_device=profiled, decode_head_view_copies=len(head_copies),
         prefill_ms=got["prefill_ms"], decode_step_ms=got["decode_ms"],
         decode_tokens_per_s=n / (got["decode_ms"] / 1e3),
         engine_tokens_per_s=got["engine_tokens"] / got["engine_s"],
         peak_bytes=peak, ref_prefill_ms=want["prefill_ms"], ref_decode_step_ms=want["decode_ms"],
     )
     return perf, launches
+
+
+def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
+    """One decode step at (n, s_max) under ``torch.profiler``: device ms by
+    kernel name (``(total_ms, [(name, ms, calls)])``, None when the profiler
+    records no device time) and every copy made of a per-head q/k/v view —
+    an ``aten::clone`` of a 3-D tensor whose last dim is ``d_head``; the
+    token path hands those views to qattention as they are."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = tp.init_cache(n, s_max)
+    tp.decode_step(toks, pos, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        tp.decode_step(toks, pos, cache)
+        torch.cuda.synchronize()
+    if not any(e.input_shapes for e in prof.events() if e.name.startswith("aten::")):
+        raise AssertionError("the profiler recorded no input shapes: the view copies cannot be checked")
+    copies = [e.input_shapes[0] for e in prof.events()
+              if e.name == "aten::clone" and e.input_shapes and len(e.input_shapes[0]) == 3
+              and e.input_shapes[0][-1] == d_head]
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None, copies
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in evs), key=lambda r: -r[1])
+    return (sum(r[1] for r in rows), rows[:top]), copies
 
 
 # ---------------------------------------------------------------------------
@@ -665,6 +779,16 @@ def main() -> int:
     log(f"  ref backend on the card: prefill {perf['ref_prefill_ms']:.2f} ms, decode step "
         f"{perf['ref_decode_step_ms']:.2f} ms")
     log(f"  launches on the token path: {launches_tok}")
+    if perf["decode_device"] is None:
+        log("  decode step device time by kernel: not measured (the profiler recorded no device time)")
+    else:
+        total, top = perf["decode_device"]
+        log(f"  one decode step at (4,512) (torch.profiler): {total:.4f} ms of device time against "
+            f"the {perf['decode_step_ms']:.4f} ms step (median, unprofiled): the card idles "
+            f"{100 * (1 - total / perf['decode_step_ms']):.1f} % of the step; copies of per-head "
+            f"q/k/v views: {perf['decode_head_view_copies']}; by kernel:")
+        for key, ms, calls in top:
+            log(f"    {ms:9.4f} ms  x{calls:<4d} {key[:90]}")
     missing = [k for k in ("qmatmul", "qmatmul_packed", "qattention") if launches_tok[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")

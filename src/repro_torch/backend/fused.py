@@ -7,7 +7,8 @@
   packed on the device, so nothing but the activation layout is touched per
   call.
 * ``qattention`` — the fused int8 attention region.  ``ref`` runs the plain
-  oracle; ``cuda`` runs :mod:`repro_torch.kernels.qattention`.  Scalar
+  oracle; ``cuda`` runs :mod:`repro_torch.kernels.qattention` on the
+  per-head views as they are, split over the record's ``cluster``.  Scalar
   constants ride in ``step.params``; the exp LUT is the one const tensor.
 * ``qact_lut`` — the exact 256-entry activation table.  ``ref`` runs the
   plain gather; ``cuda`` runs :mod:`repro_torch.kernels.qact_lut`.
@@ -95,13 +96,14 @@ def _qattention_cuda(step, args):
     p = step.params
     if p.get("dynamic_attn"):
         raise _unbound("attention")
-    # The per-head q/k/v are strided views of the qkv projection (Slice
-    # along the feature axis); the kernel takes contiguous rows, so each is
-    # copied here — a cost a strided-load kernel can remove later.
-    q, k, v, mask = (a.contiguous() for a in args)
+    # The per-head q/k/v are strided views of the qkv projection and of the
+    # KV cache (Slice along the feature axis); the kernel takes them as they
+    # are, and only an operand it refuses is copied.
+    q, k, v, mask = (a if _qatt.accepts_view(a) else a.contiguous() for a in args)
     (lut,) = step.consts
     return [_qatt.qattention(
-        q, k, v, mask, lut, out_dtype=TORCH_DTYPES[p["out_dtype"]], **_attn_scalars(p)
+        q, k, v, mask, lut, out_dtype=TORCH_DTYPES[p["out_dtype"]],
+        cluster=p["shape"]["cluster"], **_attn_scalars(p)
     )]
 
 

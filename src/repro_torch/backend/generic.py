@@ -139,7 +139,7 @@ def _t_slice(attrs, ins):
     sl = [slice(None)] * x.ndim
     for s, e, a, st in zip(starts, ends, axes, steps):
         sl[a] = slice(s, e, st)
-    return [x[tuple(sl)]]  # a strided view: fused kernels copy it contiguous
+    return [x[tuple(sl)]]  # a strided view: qattention takes it as it is, qmatmul copies it
 
 
 @_top("Squeeze")

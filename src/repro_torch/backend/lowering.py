@@ -258,7 +258,7 @@ def specialize_plan(
                     shape = kops.bind_qattention_axes(step.params["shape"], bindings)
                     params["shape"] = shape
                     tiles[step.name or step.kernel] = ",".join(
-                        f"{k}={shape[k]}" for k in ("b", "s", "t", "dh")
+                        f"{k}={shape[k]}" for k in ("b", "s", "t", "dh", "cluster")
                     )
             elif params.get("dynamic_batch"):
                 # qlinear_matmul and qlinear_conv2d (im2col onto qmatmul):

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from . import pack as _pack
 from . import qact_lut as _qact
+from . import qattention as _qatt
 from . import qmatmul as _qmm
 
 
@@ -167,9 +168,11 @@ def _bind_dim(d, bindings: dict):
 
 def bind_qattention_axes(shape: dict, bindings: Optional[dict], *, partial: bool = False) -> dict:
     """Close a fused-attention template record ``{"b": lead dims, "s", "t",
-    "dh"}`` over concrete buckets: substitute the bindings and flatten ``b``
-    to its product.  The kernel runs one block per query row, so there is no
-    query tile to choose.  ``partial=True`` keeps the record open."""
+    "dh"}`` over concrete buckets: substitute the bindings, flatten ``b``
+    to its product, and plan ``cluster``, the number of blocks each query
+    row's keys are split over (:func:`repro_torch.kernels.qattention
+    .choose_cluster` on B·S rows of T keys).  ``partial=True`` keeps the
+    record open."""
     bindings = bindings or {}
     out = dict(shape)
     lead = tuple(_bind_dim(d, bindings) for d in shape.get("b", ()))
@@ -186,7 +189,15 @@ def bind_qattention_axes(shape: dict, bindings: Optional[dict], *, partial: bool
     if not isinstance(out["s"], int) or not isinstance(out["t"], int):
         raise ValueError(f"unbound attention seq dims in {out!r}")
     out["b"] = b
+    out["cluster"] = _qatt.choose_cluster(b * out["s"], out["t"], out["dh"])
     return out
+
+
+def with_cluster(shape: dict, cluster) -> dict:
+    """A copy of a *bound* attention record with its cluster size
+    overridden; only a size the kernel can launch for the record's T and dh
+    is legal (:func:`repro_torch.kernels.qattention.check_cluster`)."""
+    return {**shape, "cluster": _qatt.check_cluster(shape["t"], shape["dh"], cluster)}
 
 
 def specialize_qmatmul_params(w_q, bias_q, quant_scale, quant_shift, *,

@@ -300,3 +300,68 @@ def test_axis_position_maps_match_repro():
         cm = compile_model(_port(m), backend="ref", device="cpu", **kw)
         assert cm.axis_input_pos == jcm.axis_input_pos
         assert cm.output_axis_pos == jcm.output_axis_pos
+
+
+def _tiny_token_path():
+    from repro_torch.serving.token_path import CompiledTokenPath, TokenPathConfig, make_token_params
+
+    cfg = TokenPathConfig()
+    return cfg, CompiledTokenPath(cfg, make_token_params(cfg, seed=3), backend="cuda", device="cpu")
+
+
+def test_token_path_head_views_reach_qattention_uncopied(monkeypatch):
+    """The decode step hands qattention the per-head Slice views of the qkv
+    projection and of the updated KV cache as they are — strided, never
+    copied — with the record's cluster size; the plain version gives the
+    same codes on those views as on contiguous copies."""
+    from repro_torch.kernels import qattention as qatt
+
+    cfg, tp = _tiny_token_path()
+    seen = []
+    real = qatt.qattention
+
+    def spy(q, k, v, mask, lut, **kw):
+        seen.append(((q, k, v, mask, lut), kw))
+        return real(q, k, v, mask, lut, **kw)
+
+    monkeypatch.setattr(qatt, "qattention", spy)
+    n, s = 2, 16
+    rng = np.random.default_rng(0)
+    tp.decode_step(rng.integers(1, cfg.vocab, (n, 1)).astype(np.int32), np.array([3, 9]),
+                   tp.init_cache(n, s))
+    assert len(seen) == cfg.n_heads * cfg.n_layers
+    for (q, k, v, mask, lut), kw in seen:
+        for x in (q, k, v):
+            assert x._base is not None and not x.is_contiguous() and qatt.accepts_view(x)
+        assert k.stride(1) == cfg.d_model and q.stride(0) == 3 * cfg.d_model
+        rows, t = q.shape[0] * q.shape[1], k.shape[1]
+        assert q.shape[1] == 1 and t >= s and kw["cluster"] == qatt.choose_cluster(rows, t, cfg.d_head)
+        plain_kw = {key: val for key, val in kw.items() if key != "cluster"}
+        np.testing.assert_array_equal(
+            qatt.qattention_plain(q, k, v, mask, lut, **plain_kw).numpy(),
+            qatt.qattention_plain(*(x.contiguous() for x in (q, k, v, mask)), lut,
+                                  **plain_kw).numpy(),
+        )
+
+
+@pytest.mark.parametrize("graph,bindings,cluster", [
+    ("decode", {"N": 4, "S": 512}, 16),
+    ("prefill", {"N": 4, "S": 128}, 1),
+])
+def test_plan_printout_shows_attention_cluster(graph, bindings, cluster):
+    """A specialized attention step carries its planned cluster size in its
+    record: print(plan) and the provenance's tile record show it."""
+    from repro_torch.kernels import qattention as qatt
+
+    cfg, tp = _tiny_token_path()
+    cm = tp.decode_cm if graph == "decode" else tp.prefill_cm
+    plan, _ = cm.specialized(bindings)
+    steps = [st for st in plan.steps if st.kernel == "qattention"]
+    assert len(steps) == cfg.n_heads * cfg.n_layers
+    s = 1 if graph == "decode" else bindings["S"]
+    want = qatt.choose_cluster(bindings["N"] * s, bindings["S"], cfg.d_head)
+    assert want == cluster
+    assert all(st.params["shape"]["cluster"] == cluster for st in steps)
+    assert f"cluster={cluster}" in str(plan)
+    rec = f"b={bindings['N']},s={s},t={bindings['S']},dh={cfg.d_head},cluster={cluster}"
+    assert rec in plan.pretty(verbose=True)

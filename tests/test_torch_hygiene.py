@@ -2,8 +2,8 @@
 
 * ``repro_torch`` imports ``torch`` and numpy and nothing of JAX or of the JAX
   package ``repro`` — checked in a fresh interpreter that imports every
-  module of the port, and by an AST scan of every port source and of
-  ``chip_smoke.py``;
+  module of the port, and by an AST scan of every port source, of
+  ``chip_smoke.py`` and of the A/B timing scripts;
 * the entry points run on the CUDA card unless the caller asks for the CPU,
   and raise — never fall back — when no card is present.
 
@@ -26,7 +26,8 @@ from repro_torch.serving.token_path import CompiledTokenPath, TokenPathConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "qmatmul_ab.py",
+                                        ROOT / "scripts" / "qattention_ab.py"]
 
 
 def _forbidden(module: str) -> bool:

@@ -484,3 +484,169 @@ def test_plan_printout_shows_splits():
     text = plan.pretty()
     assert "splits=10" in text and "splits=2" in text
     assert "m=4,bm=16,bk=64,bn=64,splits=10" in plan.pretty(verbose=True)
+
+
+# ---------------------------------------------------------------------------
+# qattention: the cluster decomposition, the cluster planner, strided views
+# ---------------------------------------------------------------------------
+
+_ATTN_SCALARS = dict(qk_scale=float(np.float32(0.05 * 0.05 / np.sqrt(32))), big=ATTN_BIG,
+                     lut_scale=ATTN_LUT_SCALE, p_scale=ATTN_P_SCALE,
+                     rescale=float(np.float32(1.0 / ATTN_P_SCALE)))
+# (B, S, T, dh, causal): decode rows with T off and on every cluster size,
+# and a causal prefill cell with T off them
+CLUSTER_CELLS = [(4, 1, 37, 32, False), (4, 1, 512, 32, False), (2, 24, 37, 32, True)]
+_REPRO_ATTN = {}
+
+
+def _repro_attention(cell):
+    """repro's Pallas kernel (interpret mode) and oracle on the cell's inputs;
+    they must agree, and the result is computed once per cell."""
+    if cell not in _REPRO_ATTN:
+        b, s, t, dh, causal = cell
+        q, k, v, mask = _attention_inputs(b, s, t, dh, seed=b * 7 + s + t, causal=causal)
+        sc = _ATTN_SCALARS
+        want_ref = np.asarray(jref.qattention_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+            jnp.float32(sc["qk_scale"]), jnp.float32(sc["big"]), jnp.float32(sc["lut_scale"]),
+            jnp.asarray(build_exp_lut()), jnp.float32(sc["p_scale"]), jnp.float32(sc["rescale"]),
+        ))
+        want_pallas = np.asarray(jqatt.qattention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+            jnp.asarray(build_exp_lut()), interpret=True, **sc,
+        ))
+        np.testing.assert_array_equal(want_pallas, want_ref)
+        _REPRO_ATTN[cell] = ((q, k, v, mask), want_ref)
+    return _REPRO_ATTN[cell]
+
+
+def _cluster_mirror(q, k, v, mask, lut, cluster, rng, *, qk_scale, big, lut_scale, p_scale,
+                    rescale):
+    """The kernel's cluster decomposition in numpy: block rank r takes keys
+    ``key_ranges(T, C)[r]`` and forms its masked scores and local max; the
+    row max is the max of the C local maxima, the den the int32 sum of the C
+    local dens, the context the int32 sum of the C partial contexts — each
+    combined in a random order — and the epilogue runs once per dim."""
+    f32 = np.float32
+    qk_scale, big, lut_scale, p_scale, rescale = (
+        f32(x) for x in (qk_scale, big, lut_scale, p_scale, rescale))
+    b, s, dh = q.shape
+    ranges = qattention.key_ranges(k.shape[1], cluster)
+    out = np.empty((b, s, dh), np.int8)
+    for bi in range(b):
+        for si in range(s):
+            masked = []
+            for k0, k1 in ranges:
+                acc = k[bi, k0:k1].astype(np.int32) @ q[bi, si].astype(np.int32)
+                m = mask[bi, si, k0:k1]
+                masked.append(acc.astype(f32) * qk_scale * m + (m - f32(1)) * big)
+            mx = f32(-np.inf)
+            for r in rng.permutation(cluster):
+                mx = np.fmax(mx, masked[r].max())
+            w = [lut[(np.clip(np.rint((sc - mx) / lut_scale), -128, 127) + 128).astype(np.int64)]
+                 .astype(np.int32) for sc in masked]
+            den = np.int32(0)
+            for r in rng.permutation(cluster):
+                den = den + w[r].sum(dtype=np.int32)
+            ctx = np.zeros(dh, np.int32)
+            for r in rng.permutation(cluster):
+                p_q = np.clip(np.rint(w[r].astype(f32) / f32(den) * p_scale), -128, 127)
+                k0, k1 = ranges[r]
+                ctx = ctx + p_q.astype(np.int32) @ v[bi, k0:k1].astype(np.int32)
+            out[bi, si] = np.clip(np.rint(ctx.astype(f32) * rescale), -128, 127)
+    return out
+
+
+@pytest.mark.parametrize("cluster", [2, 8, 16])
+@pytest.mark.parametrize("cell", CLUSTER_CELLS)
+def test_cluster_partition_is_exact(cell, cluster):
+    """Local maxima, local dens and int32 partial contexts over the kernel's
+    key ranges, combined in any order, give repro's qattention (Pallas,
+    interpret mode) and its oracle bit for bit — at every cluster size,
+    with T a multiple of C or not."""
+    (q, k, v, mask), want = _repro_attention(cell)
+    ranges = qattention.key_ranges(k.shape[1], cluster)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k.shape[1]
+    assert all(a[1] == b[0] and b[1] > b[0] for a, b in zip(ranges, ranges[1:]))
+    rng = np.random.default_rng(cluster)
+    got = _cluster_mirror(q, k, v, mask, build_exp_lut(), cluster, rng, **_ATTN_SCALARS)
+    np.testing.assert_array_equal(got, want)
+    # the wrapper on CPU tensors takes the same cluster size to the plain version
+    planned = qattention.qattention(*(torch.from_numpy(a) for a in (q, k, v, mask, build_exp_lut())),
+                                    cluster=cluster, **_ATTN_SCALARS)
+    np.testing.assert_array_equal(planned.numpy(), want)
+
+
+def test_cluster_planner_at_token_path_shapes():
+    """Decode at (4 slots, T = 512) splits each row over 16 blocks of 512
+    threads (2 keys a warp); prefill at (4, 128) has 512 rows, which fill
+    the card alone: one block per row, sized so all fit at once."""
+    assert qattention.choose_cluster(4, 512, 128) == 16
+    assert qattention.threads_for(4, 512, 16) == 512
+    assert qattention.choose_cluster(4 * 128, 128, 128) == 1
+    assert qattention.threads_for(4 * 128, 128, 1) == 512
+    assert qattention.choose_cluster(4, 77, 128) == 16  # decode on a short cache
+    rec = ops.bind_qattention_axes({"b": ("N",), "s": 1, "t": "S", "dh": 128}, {"N": 4, "S": 512})
+    assert rec == {"b": 4, "s": 1, "t": 512, "dh": 128, "cluster": 16}
+    rec = ops.bind_qattention_axes({"b": ("N",), "s": "S", "t": "S", "dh": 128}, {"N": 4, "S": 128})
+    assert rec["cluster"] == 1
+    open_rec = ops.bind_qattention_axes({"b": ("N",), "s": 1, "t": "S", "dh": 128}, {"S": 512},
+                                        partial=True)
+    assert "cluster" not in open_rec  # planned only once every axis is bound
+
+
+def test_cluster_planner_edges():
+    """Each block keeps at least MIN_KEYS keys; rows >= NUM_SMS take one
+    block each; a row longer than one block's shared memory takes the
+    smallest cluster that holds it, and one no cluster holds is refused."""
+    mk = qattention.MIN_KEYS
+    assert qattention.choose_cluster(4, 2 * mk - 1, 128) == 1
+    assert qattention.choose_cluster(4, 2 * mk, 128) == 2
+    assert qattention.choose_cluster(4, 16 * mk, 128) == 16
+    assert qattention.choose_cluster(qattention.NUM_SMS, 4096, 128) == 1
+    assert qattention.choose_cluster(qattention.NUM_SMS // 2, 4096, 128) == 2
+    assert qattention.choose_cluster(1, 1, 128) == 1
+    one = qattention.max_keys(128, 1)
+    assert qattention.choose_cluster(qattention.NUM_SMS, one + 1, 128) == 2
+    assert qattention.max_keys(128, 16) > 16 * (one - 128)
+    with pytest.raises(ValueError, match="no cluster size"):
+        qattention.choose_cluster(4, qattention.max_keys(128, 16) + 1, 128)
+    # threads: a warp per two keys, within [MIN_WARPS, MAX_WARPS] warps and
+    # one resident wave of blocks
+    assert qattention.threads_for(4, 77, 16) == 32 * qattention.MIN_WARPS
+    assert qattention.threads_for(4 * 1024, 1024, 1) == 32 * qattention.MIN_WARPS
+    assert qattention.threads_for(198, 128, 2) == 32 * 10  # 396 blocks: 3 an SM
+
+
+def test_with_cluster_refuses_illegal_sizes():
+    """A cluster size is one of CLUSTER_SIZES, at most T, and holds the row;
+    the plan's override and the wrapper refuse anything else."""
+    rec = ops.bind_qattention_axes({"b": (4,), "s": 1, "t": 37, "dh": 32}, None)
+    assert rec["cluster"] == 8
+    for c in qattention.CLUSTER_SIZES:
+        assert ops.with_cluster(rec, c) == {**rec, "cluster": c}
+    for bad in (0, 3, 32, -2, True, 2.0, "2", None):
+        with pytest.raises(ValueError, match="cluster"):
+            ops.with_cluster(rec, bad)
+    short = {**rec, "t": 7}
+    with pytest.raises(ValueError, match="cluster=8"):
+        ops.with_cluster(short, 8)
+    q, k, v, mask = (torch.from_numpy(a) for a in _attention_inputs(1, 1, 7, 32, 0, False))
+    with pytest.raises(ValueError, match="cluster"):
+        qattention.qattention(q, k, v, mask, torch.from_numpy(build_exp_lut()), cluster=8,
+                              **_ATTN_SCALARS)
+
+
+def test_wrapper_takes_views_and_names_what_it_refuses():
+    """accepts_view: a 3-D view with a contiguous last dim, 4-byte base and
+    strides (a broadcast mask's batch stride 0 included); anything else is
+    refused, and the fused step would copy only that."""
+    buf = torch.zeros((4, 9, 3 * 64), dtype=torch.int8)
+    assert qattention.accepts_view(buf[:, :, 64 + 32:64 + 64])
+    assert qattention.accepts_view(torch.ones((1, 9, 9)).expand(4, 9, 9))
+    assert not qattention.accepts_view(buf[:, :, 1:33])  # base off a 4-byte boundary
+    assert not qattention.accepts_view(buf[:, :, ::2])  # last dim strided
+    odd = torch.zeros((4, 9, 65), dtype=torch.int8)[:, :, :64]
+    assert not qattention.accepts_view(odd)  # row stride 65 bytes
+    assert qattention.accepts_view(odd[:1, :1])  # ...which a lone row never steps
+    assert not qattention.accepts_view(buf[0])
