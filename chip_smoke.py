@@ -17,7 +17,12 @@ Drives the port's main path on one CUDA card and fails loudly:
    yardstick the port never calls); qattention also runs on the token
    path's per-head q/k/v views (head ``ATTN_HEAD`` of buffers of width
    3·``ATTN_D``) at every cluster size at decode, each row with its
-   cluster size and threads per block;
+   cluster size and threads per block; the qmatmul epilogue with an
+   activation table (the main path's LUT route) at slice A's two LUT
+   layers, at the decode route with split-K and on the packed lane, each
+   timed beside the same matmul without a table and beside matmul →
+   standalone qact_lut (→ shift); and every qmatmul kernel instance's
+   static shared memory and registers as the driver reports them;
 4. token path — the compiled token path at Qwen3-1.7B widths (vocab 151936,
    d_model 2048, 16 heads of 128, d_ff 6144; depth cut to ``N_LAYERS``),
    built twice from one seed — backend ``cuda`` and backend ``ref`` — and
@@ -28,7 +33,9 @@ Drives the port's main path on one CUDA card and fails loudly:
 5. slice A — the paper's Tanh/Sigmoid MLP (§4/§6; fp16 tanh flow) at the
    feed-forward widths 2048 → 6144 → 6144 → 2048, served by
    ``CompiledModelServer`` on both backends, responses identical and equal
-   to the numpy ``ReferenceRuntime`` on a sample;
+   to the numpy ``ReferenceRuntime`` on a sample; on ``cuda`` both tables
+   ride in the qmatmul epilogue (3 launches a batch, 2 with a table) and
+   the profiled forward shows no standalone LUT or shift kernel;
 6. slice B — the paper's §5 CNN (stride-2 ConvInteger stack with ResNet-18's
    stage widths, 7×7/2 stem, 1000-way FC head, 3×224×224 input), served
    the same way;
@@ -136,6 +143,19 @@ ATTN_SHAPES = [(1, 512), (1, 77), (128, 128), (77, 96)]  # (S, T) at B=4, dh=128
 ATTN_VIEW_SHAPES = [(1, 512), (1, 77), (128, 128)]
 ATTN_D, ATTN_HEAD = 2048, 5
 DECODE_M = 4  # rows of a decode step at 4 slots
+#: The qmatmul epilogue with a table: (tag, M, K, N, weight bits, table) —
+#: slice A's Tanh layer (int8 table) and Sigmoid layer (uint8 table shifted
+#: to int8 as the plan folds it before the last FC) at a lone row, a ragged
+#: bucket and batch 64, the Sigmoid table unshifted, the decode route with
+#: split-K, and the packed lane.
+LUT_EPILOGUE_ROWS = [
+    ("sliceA", m, k, 6144, 8, kind)
+    for m in (1, 17, 64) for k, kind in ((2048, "int8"), (6144, "uint8-128"))
+] + [
+    ("sliceA", 64, 6144, 6144, 8, "uint8"),
+    ("decode", 4, 2048, 6144, 8, "int8"),
+    ("packed", 4, 6144, 2048, 4, "uint8"),
+]
 
 
 def _matmul_operands(rng, k, n, bits, device):
@@ -240,6 +260,93 @@ def _check_lut(flush, rows, worst, x, lut, tag):
                      bound_by=b_by, library_ms=lms, max_abs_err=err))
     log(f"  qact_lut        {tag}: exact, {ms:.4f} ms (plain {pms:.4f} ms, torch.take "
         f"{lms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
+
+
+def _table(rng, kind, device):
+    """A random activation table: int8, uint8, or uint8 stored shifted to
+    int8 (``u - 128``), with the uint8 table it came from (else None)."""
+    import numpy as np
+    import torch
+
+    dt = "int8" if kind == "int8" else "uint8"
+    info = np.iinfo(dt)
+    lut = torch.from_numpy(rng.integers(info.min, info.max + 1, (256,)).astype(dt)).to(device)
+    if kind != "uint8-128":
+        return lut, None
+    return (lut ^ 128).view(torch.int8), lut
+
+
+def _check_lut_epilogue(rng, device, flush, rows, worst, tag, m, k, n, bits, kind):
+    """The matmul with a table in its epilogue against its plain version and
+    against the unfolded chain, matmul → standalone qact_lut (→ the uint8
+    shift, for a shifted table), bit for bit; then the three timed in turns,
+    unfolded / table / no table / no table / table / unfolded, so a drift of
+    the card's clock hits each alike.  ``added_ms`` is the table's cost
+    (with minus without), ``added_range_ms`` its spread over the turns."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qact_lut as qact
+    from repro_torch.kernels import qmatmul as qmm
+
+    consts, shape = _matmul_operands(rng, k, n, bits, device)
+    kern = qmm.qmatmul_packed if bits == 4 else qmm.qmatmul
+    plain = qmm.qmatmul_packed_plain if bits == 4 else qmm.qmatmul_plain
+    x = torch.from_numpy(_int8(rng, (m, k))).to(device)
+    bound = ops.bind_qmatmul_axes({**shape, "lead": (m,)}, None)
+    kw = dict(n=n, relu=False, two_mul=True, bm=bound["bm"], splits=bound["splits"])
+    lut, unshifted = _table(rng, kind, device)
+    rt = qmm.route(x, bound["bm"], bound["splits"])
+
+    def unfolded():
+        y = qact.qact_lut(kern(x, *consts, **kw), lut if unshifted is None else unshifted)
+        return y if unshifted is None else ops.shift_uint8(y)
+
+    got = kern(x, *consts, lut=lut, **kw)
+    err = max(_max_err(got, plain(x, *consts, lut=lut, **kw)), _max_err(got, unfolded()))
+    worst["qact_lut"] = max(worst["qact_lut"], err)
+    if err:
+        raise AssertionError(f"qmatmul+lut {tag} M={m} K={k} N={n} w{bits} {kind} {rt}: "
+                             f"max |kernel - plain| = {err}")
+    fns = {"unfolded": unfolded, "table": lambda: kern(x, *consts, lut=lut, **kw),
+           "bare": lambda: kern(x, *consts, **kw)}
+    turns = {who: [] for who in fns}
+    for who in ("unfolded", "table", "bare", "bare", "table", "unfolded"):
+        turns[who].append(time_ms(fns[who], flush))
+    ms, bare_ms, unfolded_ms = (sum(turns[w]) / 2 for w in ("table", "bare", "unfolded"))
+    added = (min(turns["table"]) - max(turns["bare"]), max(turns["table"]) - min(turns["bare"]))
+    pms = time_ms(lambda: plain(x, *consts, lut=lut, **kw), flush)
+    wbytes = k * n // 2 if bits == 4 else k * n
+    b_ms, b_by = bound_ms(m * k + wbytes + 12 * n + 256 + m * n, 2.0 * m * n * k)
+    rows.append(dict(kernel="qmatmul_lut", shape=f"{tag},M={m},K={k},N={n},w{bits},{kind}",
+                     ms=ms, bare_ms=bare_ms, added_ms=ms - bare_ms, added_range_ms=added,
+                     unfolded_ms=unfolded_ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                     max_abs_err=err, route=rt, turns_ms=turns))
+    log(f"  qmatmul+lut     {tag} M={m:3d} K={k:5d} N={n:4d} w{bits} {kind:9s}: exact, {ms:.4f} ms "
+        f"(no table {bare_ms:.4f} ms, table adds {ms - bare_ms:+.4f} ms [{added[0]:+.4f}, "
+        f"{added[1]:+.4f}]; unfolded {unfolded_ms:.4f} ms, x{unfolded_ms / ms:.2f}; plain "
+        f"{pms:.4f} ms; bound {b_ms:.3g} ms by {b_by}) "
+        f"[{rt['instruction']} bm={rt['bm']} splits={rt['splits']} {rt['staging']}]")
+
+
+def kernel_instances():
+    """Static shared memory and registers of every qmatmul kernel instance
+    (cudaFuncGetAttributes); raises past the 48 KB static limit."""
+    from repro_torch.kernels import qmatmul as qmm
+
+    out = []
+    for bm in qmm.SUPPORTED_BM:
+        for packed in (False, True):
+            for x16 in (True, False):
+                a = qmm.kernel_attrs(bm, packed, x16)
+                if a["shared_bytes"] > 48 * 1024:
+                    raise AssertionError(f"qmatmul bm={bm} packed={packed} x16={x16}: "
+                                         f"{a['shared_bytes']} B of static shared memory")
+                out.append(dict(bm=bm, packed=packed, x16=x16, **a))
+    log("  qmatmul instances (static shared B / registers): " + "; ".join(
+        f"bm={r['bm']}{' packed' if r['packed'] else ''}{' x16' if r['x16'] else ' bytes'} "
+        f"{r['shared_bytes']}/{r['regs']}" for r in out))
+    return out
 
 
 def attention_constants(device):
@@ -355,6 +462,8 @@ def check_kernels(device, flush, rows):
     big = torch.from_numpy(_int8(rng, (37 * 2051 + 1,))).to(device)
     lut = torch.from_numpy(rng.integers(0, 256, (256,)).astype(np.uint8)).to(device)
     _check_lut(flush, rows, worst, big[1:].view(37, 2051), lut, "M=37,N=2051,uint8,offset1")
+    for row in LUT_EPILOGUE_ROWS:
+        _check_lut_epilogue(rng, device, flush, rows, worst, *row)
 
     lut, scal = attention_constants(device)
     b, dh = 4, 128
@@ -602,9 +711,10 @@ def _serve(cm, examples, waves, max_batch, min_s=0.0):
     return reqs, srv.summary(), time.perf_counter() - t, rounds
 
 
-def _batch_ms(cm, examples, max_batch, reps=7) -> float:
+def _batch_ms(cm, examples, max_batch, reps=101) -> float:
     """Median host-clock ms of one synchronised forward at the largest
-    bucket (``max_batch`` requests)."""
+    bucket (``max_batch`` requests); many reps, since the host is shared and
+    a few slow ones would move a short median."""
     import numpy as np
     import torch
 
@@ -620,26 +730,47 @@ def _batch_ms(cm, examples, max_batch, reps=7) -> float:
     return sorted(times)[reps // 2]
 
 
+#: Forwards in the profiled window of phases 5-6, after one warm-up step.
+PROFILED_FORWARDS = 5
+
+
 def device_breakdown(cm, examples, max_batch, top=6):
-    """Device time of one forward at the largest bucket, summed by kernel
-    name from a ``torch.profiler`` trace: ``(total_ms, [(name, ms, calls)])``,
-    or None when the profiler records no device time."""
+    """Device time of one forward at the largest bucket, by kernel name, from
+    a ``torch.profiler`` trace of PROFILED_FORWARDS forwards after a warm-up
+    step that the trace discards (without it the window's first device
+    event, the input's copy, went unrecorded): ``(total_ms, [(name, ms,
+    calls)], names)`` per forward, copies included, or None when the
+    profiler records no device time."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     feeds = {cm.input_names[0]: np.stack(examples[:max_batch])}
     cm.run(feeds)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         cm.run(feeds)
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        prof.step()
+        for _ in range(PROFILED_FORWARDS):
+            cm.run(feeds)
+        torch.cuda.synchronize()  # the active step ends with the context
+    # the schedule's step annotation spans the window on the device too: not a kernel
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
     if not evs:
         return None
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in evs), key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows[:top]
+    n = PROFILED_FORWARDS
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in evs),
+                  key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top], [r[0] for r in rows]
+
+
+#: Device kernels a forward whose LUTs all ride in the matmul epilogue must
+#: not launch: the standalone table kernel and the uint8 shift (an XOR).
+UNFOLDED_KERNELS = ("qact_lut", "xor")
 
 
 def run_served(device, name, build, waves, max_batch, n_ref, want_stats, per_batch):
@@ -647,7 +778,8 @@ def run_served(device, name, build, waves, max_batch, n_ref, want_stats, per_bat
     ref, serve the waves on each (one round to warm up, then the counted
     window of at least MIN_WINDOW_S), require every response identical to the ref
     server's for the same example and the first ``n_ref`` equal to the numpy
-    ReferenceRuntime.  ``per_batch`` is each kernel's launches per forward;
+    ReferenceRuntime.  ``want_stats`` maps each backend to the compile stats
+    it must show.  ``per_batch`` is each kernel's launches per forward;
     the counted run must show exactly that times the batches."""
     import numpy as np
     import torch
@@ -664,9 +796,9 @@ def run_served(device, name, build, waves, max_batch, n_ref, want_stats, per_bat
         t = time.perf_counter()
         cms[b] = compile_model(model, backend=b, device=device, batch="dynamic")
         compile_s[b] = time.perf_counter() - t
-        got = {k: cms[b].stats[k] for k in want_stats}
-        if got != want_stats:
-            raise AssertionError(f"{name} {b}: fused stats {got}, want {want_stats}")
+        got = {k: cms[b].stats[k] for k in want_stats[b]}
+        if got != want_stats[b]:
+            raise AssertionError(f"{name} {b}: fused stats {got}, want {want_stats[b]}")
     log(f"  quantize (toolchain, host) {t_build:.1f} s; compile cuda {compile_s['cuda']:.2f} s, "
         f"ref {compile_s['ref']:.2f} s; stats {cms['cuda'].stats}")
 
@@ -726,6 +858,17 @@ def run_served(device, name, build, waves, max_batch, n_ref, want_stats, per_bat
     return perf, launches
 
 
+def check_no_unfolded_kernels(name, perf):
+    """The profiled forward launched no standalone LUT and no shift kernel."""
+    if perf["device"] is None:
+        raise AssertionError(f"{name}: the profiler recorded no device time, so the forward's "
+                             "kernels cannot be checked")
+    names = perf["device"][2]
+    bad = [k for k in names if any(u in k.lower() for u in UNFOLDED_KERNELS)]
+    if bad:
+        raise AssertionError(f"{name}: the profiled forward launched unfolded kernels {bad}")
+
+
 def _perf_line(name, perf, card, max_batch, extra=""):
     log(f"  {name}: compile {perf['compile_s']:.2f} s; {perf['requests_per_s']:.1f} requests/s "
         f"over {perf['window_s']:.2f} s (ref {perf['ref_requests_per_s']:.1f} over "
@@ -737,11 +880,62 @@ def _perf_line(name, perf, card, max_batch, extra=""):
         log(f"  {name} device time by kernel at batch {max_batch}: not measured "
             "(the profiler recorded no device time)")
         return
-    total, top = perf["device"]
-    log(f"  {name} device time of one forward at batch {max_batch} (torch.profiler): "
-        f"{total:.4f} ms of the {perf['batch_ms']:.4f} ms forward; by kernel:")
+    total, top, _ = perf["device"]
+    log(f"  {name} device time of one forward at batch {max_batch} (torch.profiler, mean of "
+        f"{PROFILED_FORWARDS}): {total:.4f} ms of the {perf['batch_ms']:.4f} ms forward; by kernel "
+        "(launches per forward):")
     for key, ms, calls in top:
-        log(f"    {ms:9.4f} ms  x{calls:<3d} {key[:90]}")
+        log(f"    {ms:9.4f} ms  x{calls:<4g} {key[:90]}")
+
+
+def lut_row(rows, worst, launches):
+    """The kernels-line row of qact_lut, which runs by two routes: on the
+    main path as the table in the qmatmul epilogue (slice A's Tanh layer
+    and its Sigmoid layer, shifted as the plan folds it), for a LUT the plan
+    does not fold as the standalone kernel.  The row's times are the main
+    route's kernel, the two matmuls with their tables, against that fused
+    function's own bound and plain version; no single PyTorch call computes
+    it.  The table's added time, with its spread over the turns, and the
+    standalone kernel's times at the same layers ride in ``routes``."""
+    def pick(kernel, shape):
+        sel = [r for r in rows if r["kernel"] == kernel and r["shape"] == shape]
+        if len(sel) != 1:
+            raise AssertionError(f"{kernel}: row {shape} missing")
+        return sel[0]
+
+    fused = [pick("qmatmul_lut", f"sliceA,M={MLP_MAX_BATCH},K=2048,N=6144,w8,int8"),
+             pick("qmatmul_lut", f"sliceA,M={MLP_MAX_BATCH},K=6144,N=6144,w8,uint8-128")]
+    alone = [pick("qact_lut", f"M={MLP_MAX_BATCH},N=6144,int8"),
+             pick("qact_lut", f"M={MLP_MAX_BATCH},N=6144,uint8")]
+    if launches["qmatmul_lut"] <= 0:
+        raise AssertionError("qact_lut was launched no time on the main paths (no qmatmul launch "
+                             "carried a table)")
+
+    def total(sel, field):
+        return sum(r[field] for r in sel)
+
+    return {
+        "name": "qact_lut", "route": "cuda", "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
+        "replaces": "src/repro/kernels/qact_lut.py:57",
+        "launches": launches["qmatmul_lut"] + launches["qact_lut"],
+        "max_abs_err": worst["qact_lut"], "ms": total(fused, "ms"),
+        "plain_ms": total(fused, "plain_ms"), "bound_ms": total(fused, "bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in fused) else "operations",
+        "library_ms": None,
+        "routes": [
+            {"where": "main path: the table in the qmatmul epilogue",
+             "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
+             "launches": launches["qmatmul_lut"], "with_table_ms": total(fused, "ms"),
+             "without_table_ms": total(fused, "bare_ms"), "added_ms": total(fused, "added_ms"),
+             "added_range_ms": [sum(r["added_range_ms"][i] for r in fused) for i in (0, 1)],
+             "unfolded_ms": total(fused, "unfolded_ms")},
+            {"where": "LUTs the plan does not fold: the standalone kernel",
+             "source": "src/repro_torch/kernels/csrc/qact_lut.cu",
+             "launches": launches["qact_lut"], "ms": total(alone, "ms"),
+             "plain_ms": total(alone, "plain_ms"), "bound_ms": total(alone, "bound_ms"),
+             "library_ms": total(alone, "library_ms")},
+        ],
+    }
 
 
 def main() -> int:
@@ -768,6 +962,7 @@ def main() -> int:
     log("[3/7] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
+    instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
     log(f"[4/7] token path: compiled token path, backend cuda vs backend ref  ({card})")
@@ -795,19 +990,24 @@ def main() -> int:
 
     log(f"[5/7] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
+    stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
         device, "slice A", build_mlp, MLP_WAVES, MLP_MAX_BATCH, MLP_REF_SAMPLE,
-        {"fused_lut": 2, "fused_qlinear": 3}, {"qmatmul": 3, "qact_lut": 2},
+        {"cuda": {**stats_a, "lut_epilogues": 2}, "ref": {**stats_a, "lut_epilogues": 0}},
+        {"qmatmul": 3, "qmatmul_lut": 2},
     )
     _perf_line("slice A", perf_a, card, MLP_MAX_BATCH)
-    log(f"  launches on slice A: {launches_a}")
+    check_no_unfolded_kernels("slice A", perf_a)
+    log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
+        "forward)")
 
     log(f"[6/7] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
         device, "slice B", build_cnn, CNN_WAVES, CNN_MAX_BATCH, CNN_REF_SAMPLE,
-        {"fused_qconv": len(CNN_CONVS), "fused_qlinear": 1}, {"qmatmul": len(CNN_CONVS) + 1},
+        {b: {"fused_qconv": len(CNN_CONVS), "fused_qlinear": 1} for b in ("cuda", "ref")},
+        {"qmatmul": len(CNN_CONVS) + 1},
     )
     perf_b["conv_steps_on_qmatmul"] = perf_b["batches"] * len(CNN_CONVS)
     _perf_line("slice B", perf_b, card, CNN_MAX_BATCH,
@@ -815,11 +1015,10 @@ def main() -> int:
     log(f"  launches on slice B: {launches_b}")
 
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
-                for k in worst}
+                for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
-    # at the decode shapes (qattention: one launch per head); qact_lut: the
-    # two LUT layers of one slice-A forward at its largest bucket
+    # at the decode shapes (qattention: one launch per head)
     def summed(kernel, shapes, mult=1):
         sel = [r for r in rows if r["kernel"] == kernel and r["shape"] in shapes]
         if len(sel) != len(shapes):
@@ -833,13 +1032,11 @@ def main() -> int:
         "qmatmul": summed("qmatmul", {f"M={DECODE_M},K=2048,N=2048,w8", f"M={DECODE_M},K=2048,N=6144,w8,relu"}),
         "qmatmul_packed": summed("qmatmul_packed", {f"M={DECODE_M},K=2048,N=6144,w4", f"M={DECODE_M},K=6144,N=2048,w4"}),
         "qattention": summed("qattention", {"B=4,S=1,T=512,dh=128"}, mult=16),
-        "qact_lut": summed("qact_lut", {f"M={MLP_MAX_BATCH},N=6144,int8", f"M={MLP_MAX_BATCH},N=6144,uint8"}),
     }
     sources = {
         "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:217"),
         "qmatmul_packed": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:170"),
         "qattention": ("src/repro_torch/kernels/csrc/qattention.cu", "src/repro/kernels/qattention.py:105"),
-        "qact_lut": ("src/repro_torch/kernels/csrc/qact_lut.cu", "src/repro/kernels/qact_lut.py:57"),
     }
     kernels = []
     for name, (tot, sel) in summaries.items():
@@ -852,17 +1049,22 @@ def main() -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
+    kernels.append(lut_row(rows, worst, launches))
     log("[7/7] summary: launches are summed over the counted runs of phases 4-6; "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
-        f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers); library_ms is torch.take for "
-        "qact_lut (int64 indices made beforehand) and null for the others: no single "
-        "PyTorch call computes either fused function; each matmul row of chip_smoke.json "
-        "carries gemm_library_ms, torch._int_mm's int32 GEMM body alone, where it takes the shape")
+        f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
+        "launches that carried a table, its ms/plain_ms/bound_ms those of slice A's two "
+        "matmuls with their tables, and its routes hold the time the tables add (with its "
+        "spread over the turns) and the standalone kernel's time, bound and torch.take; "
+        "library_ms is null: no single PyTorch call computes a fused function; each matmul row of "
+        "chip_smoke.json carries gemm_library_ms, torch._int_mm's int32 GEMM body alone, "
+        "where it takes the shape")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "n_layers": N_LAYERS, "rows": rows, "slice": perf, "slice_a": perf_a,
+                   "n_layers": N_LAYERS, "rows": rows, "qmatmul_instances": instances,
+                   "slice": perf, "slice_a": perf_a,
                    "slice_b": perf_b, "launches": {"token_path": launches_tok, "slice_a": launches_a,
                                                    "slice_b": launches_b},
                    "kernels": kernels}, f, indent=1, default=str)

@@ -11,7 +11,14 @@
   per-head views as they are, split over the record's ``cluster``.  Scalar
   constants ride in ``step.params``; the exp LUT is the one const tensor.
 * ``qact_lut`` — the exact 256-entry activation table.  ``ref`` runs the
-  plain gather; ``cuda`` runs :mod:`repro_torch.kernels.qact_lut`.
+  plain gather; ``cuda`` runs :mod:`repro_torch.kernels.qact_lut`.  On
+  ``cuda`` a LUT rides in the matmul epilogue instead wherever its input is
+  the output of a ``qlinear_matmul`` step that nothing else reads and that is
+  neither a graph output nor a state: the plan folds the LUT step into that
+  step, whose fifth const is then the table and ``params["lut"]`` names it
+  (``Compiler._fold_lut_epilogues``).  A uint8 table whose output only
+  ``x_uint8`` matmuls read is stored shifted (``u - 128`` as int8), and
+  those readers launch no shift.
 * ``qlinear_conv2d`` — the fused int8 convolution.  ``ref`` runs the plain
   oracle (an exact float64 ``F.conv2d``) on unpadded parameters; ``cuda``
   runs im2col and then the qmatmul kernel with its epilogue, on the
@@ -65,10 +72,14 @@ def _qlinear_matmul_cuda(step, args):
     if p.get("dynamic_batch"):
         raise _unbound("matmul")
     x = _as_signed(args[0], p).contiguous()
-    w2, b2, qs2, qsh2 = step.consts
+    w2, b2, qs2, qsh2, *lut = step.consts  # a folded activation table rides fifth
+    if len(lut) > 1:
+        raise ValueError(f"qlinear_matmul step with {len(step.consts)} consts: an epilogue "
+                         "applies one table at most")
     return [kops.quantized_matmul_planned(
         x, w2, b2, qs2, qsh2, p["shape"],
         out_dtype=TORCH_DTYPES[p["out_dtype"]], relu=p["relu"], two_mul=p["two_mul"],
+        lut=lut[0] if lut else None,
     )]
 
 

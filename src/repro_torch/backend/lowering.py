@@ -60,6 +60,9 @@ class StepDraft:
     consts: Tuple[Any, ...] = ()  # bag constants (read via step.consts)
     kind: str = "generic"
     name: str = ""
+    #: per output, a dtype that replaces the graph's (None keeps it): a plan
+    #: fold that stores other codes than the graph's value (shifted uint8)
+    out_dtypes: Tuple[Optional[str], ...] = ()
 
 
 def build_plan(
@@ -143,7 +146,10 @@ def build_plan(
         for o in d.outputs:  # never-read, non-output results die immediately
             if uses.get(o, 0) == 0:
                 release(o)
-        out_info = tuple(ValueInfo(analysis.dtype(o), analysis.shape(o)) for o in d.outputs)
+        dtypes = d.out_dtypes or (None,) * len(d.outputs)
+        out_info = tuple(
+            ValueInfo(dt or analysis.dtype(o), analysis.shape(o)) for o, dt in zip(d.outputs, dtypes)
+        )
         steps.append(
             PlanStep(
                 kernel=d.kernel,

@@ -9,7 +9,9 @@ The flow is ``repro``'s, level for level:
 2. **Fuse** — declarative chain patterns (QLINEAR / GEMM / LUT) and the
    programmatic attention-region matcher collapse the paper's op chains
    into ``qlinear_matmul`` / ``qlinear_conv2d`` / ``qattention`` /
-   ``qact_lut`` steps.
+   ``qact_lut`` steps.  On the ``cuda`` backend a LUT step that alone reads
+   a ``qlinear_matmul`` step's output then folds into that step's epilogue
+   (:meth:`Compiler._fold_lut_epilogues`); ``ref`` keeps ``repro``'s steps.
 3. **Lower** — drafts become a liveness-planned :class:`ExecutionPlan`.
    Every array constant (weights, bias, scales, LUTs, embeddings) moves to
    the plan's device **once**, here; shape-parameter constants (Slice
@@ -769,6 +771,7 @@ class Compiler:
             "fused_qlinear": 0,
             "fused_qconv": 0,
             "fused_lut": 0,
+            "lut_epilogues": 0,
             "fused_qattention": 0,
             "generic": 0,
             "folded": self.pass_report.total("folded"),
@@ -804,6 +807,8 @@ class Compiler:
                 fused=len(self.provenance.fusions),
                 generic=self.stats["generic"],
             )
+        if self.backend == "cuda":
+            drafts = self._fold_lut_epilogues(drafts)
         for d in drafts:
             lookup(self.backend, d.kernel)  # an unported kernel fails here, not mid-run
         with _trace.span("compile.lower", steps=len(drafts)) as lower_span:
@@ -821,6 +826,61 @@ class Compiler:
             dynamic_axes=self.dynamic_axes,
             device=self.device,
         )
+
+    def _fold_lut_epilogues(self, drafts: List[StepDraft]) -> List[StepDraft]:
+        """Fold each ``qact_lut`` draft into the ``qlinear_matmul`` draft
+        that produces its input, where nothing else reads that input and it
+        is neither a graph output nor a state: the matmul takes the table as
+        its fifth const and writes the LUT's output, and ``params["lut"]``
+        names the activation.  Where the table is uint8 and every reader of
+        the LUT's output is a matmul with ``x_uint8`` (the Sigmoid → FC of
+        the paper's Fig 6 flow), and that output is neither a graph output
+        nor a state, the table is stored shifted (``u - 128`` as int8, the
+        value typed int8) and those readers drop ``x_uint8``: their bias
+        already holds the fold for ``u - 128``, so they launch no shift.
+        ``stats["fused_lut"]`` keeps counting LUT matches;
+        ``stats["lut_epilogues"]`` counts folds.  A matmul folds one table
+        at most (of a LUT → LUT chain only the first LUT folds), and conv
+        steps do not fold."""
+        pinned = {t.name for t in self.graph.outputs}
+        pinned.update(n for st in self.graph.states for n in (st.input, st.output))
+        readers: Dict[str, List[StepDraft]] = {}
+        producer: Dict[str, StepDraft] = {}
+        for d in drafts:
+            for kind, val in d.args:
+                if kind == "tensor":
+                    readers.setdefault(val, []).append(d)
+            producer.update((o, d) for o in d.outputs)
+        folded = set()
+        for lut in drafts:
+            if lut.kernel != "qact_lut":
+                continue
+            x, y = lut.args[0][1], lut.outputs[0]
+            mm = producer.get(x)
+            if (mm is None or mm.kernel != "qlinear_matmul" or "lut" in mm.params
+                    or x in pinned or len(readers[x]) != 1):
+                continue  # a matmul that already carries a table takes no second
+            (table,) = lut.consts
+            record = lut.params["act"]
+            users = readers.get(y, [])
+            if table.dtype == torch.uint8:
+                if users and y not in pinned and all(
+                        r.kernel == "qlinear_matmul" and r.params.get("x_uint8") for r in users):
+                    table = kops.shift_uint8(table)
+                    record += ",u8-128"
+                    mm.out_dtypes = ("int8",)
+                    for r in users:
+                        r.params = {k: v for k, v in r.params.items() if k != "x_uint8"}
+                else:
+                    record += ",u8"
+            mm.consts = tuple(mm.consts) + (table,)
+            mm.outputs = [y]
+            mm.params = {**mm.params, "lut": record}
+            producer[y] = mm
+            folded.add(id(lut))
+            self.stats["lut_epilogues"] += 1
+            self.provenance.add_fusion("lut_epilogue", mm.name, (mm.name, lut.name), y)
+        return [d for d in drafts if id(d) not in folded]
 
     def _qattention_regions(self):
         """Match every attention region once, up front.  Returns

@@ -2,8 +2,10 @@
 plain PyTorch versions.
 
 qmatmul     — fused int8 / packed-int4 matmul + bias + §3.1 rescale + requant
+              [+ an activation table in the epilogue]
 qattention  — fused int8 attention region (scores, LUT softmax, context)
-qact_lut    — the exact 256-entry activation table: builder and gather kernel
+qact_lut    — the exact 256-entry activation table: builder and the gather
+              kernel for tables the plan does not fold into a matmul
 ops         — plan-time templates, per-bucket binding, the planned matmul,
               activation and (im2col) conv calls
 ref         — plain PyTorch oracles (the ``ref`` backend)

@@ -10,8 +10,12 @@
 // Bound on an H100: the work is one byte read and one byte written per
 // element, 2 * numel bytes at 3.35 TB/s.  At the served MLP's shapes
 // (<= 64 rows x 6144) that is under 1 us, so a launch is bound by launch
-// latency, not by the card; fusing the table into the preceding qmatmul
-// epilogue is the later fix.  What the design does about the bytes:
+// latency, not by the card.  So on the main path the table rides in the
+// epilogue of the qmatmul that produces the LUT's input (csrc/qmatmul.cu;
+// the plan folds it there, core/compile.py::Compiler._fold_lut_epilogues),
+// and this kernel serves the LUTs the plan does not fold: one on a graph
+// input, or on a value that another step or the graph's outputs read too.
+// What the design does about the bytes:
 //   * the table is copied to shared memory once per block;
 //   * each thread moves 16 bytes per step, one 16-byte load and (when x and
 //     out share their alignment) one 16-byte store, in a grid-stride loop;

@@ -1,9 +1,10 @@
 // Fused pre-quantized matmul for Hopper (sm_90a): int8 x · int8 (or packed
 // int4) W → int32 → bias → f32 rescale (one or two Muls) → [ReLU] → round half
-// to even → clip to int8 / uint8.
+// to even → clip to int8 / uint8 [→ a 256-entry activation table].
 //
 // Replaces the TPU kernels repro/kernels/qmatmul.py::qmatmul (int8 weights)
-// and ::qmatmul_packed (int4 nibble pairs), with their shared _epilogue.
+// and ::qmatmul_packed (int4 nibble pairs), with their shared _epilogue, and
+// on the main path repro/kernels/qact_lut.py::qact_lut (the table, below).
 //
 // What bounds it on an H100 (3.35 TB/s, 1,979 int8 TOP/s, 132 SMs):
 //   * decode (M = a few rows), slice A's M = 64 layers, the FC head at M = 16
@@ -60,6 +61,21 @@
 //     fragment.
 //   * The epilogue runs in registers on the full int32 sum: the
 //     Cast/Mul/Mul/QuantizeLinear chain never round-trips to device memory.
+//   * An activation table rides in the epilogue.  Where the plan folds a
+//     LUT step (repro/kernels/qact_lut.py::qact_lut, the paper's Tanh and
+//     Sigmoid flows) into the matmul that feeds it, the launch takes the
+//     256-byte table too: each thread loads two of its bytes before the
+//     prologue (the loads overlap the first stages' copies), stores them to
+//     shared memory after it, and the mainloop's first barrier publishes
+//     them.  The epilogue computes the int8 code q exactly as without a
+//     table, then stores tab[q + 128], int8 or uint8 as the table is.  The
+//     table costs no device bytes beyond its own 256 and one shared-memory
+//     byte load per output; what it removes is a whole launch, about 5 us of
+//     launch floor at the served MLP's shapes, and a write and a read of
+//     the activation through device memory.  A uint8 table whose codes feed
+//     only int8 matmuls comes shifted by the plan (u - 128, stored as
+//     int8), which removes the shift launch too.  The branch is taken at run
+//     time on the table pointer, which is uniform across the grid.
 //
 // Exactness: the int32 sum is order-independent; the epilogue wraps the bias
 // add in unsigned arithmetic and uses the IEEE round-to-nearest intrinsics
@@ -114,7 +130,8 @@ template <int BM, int STAGES, bool PACKED, bool X16>
 __global__ void __launch_bounds__(THREADS)
 qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
                const int* __restrict__ bias, const float* __restrict__ qs,
-               const float* __restrict__ qsh, uint8_t* __restrict__ out,
+               const float* __restrict__ qsh, const uint8_t* __restrict__ lut,
+               uint8_t* __restrict__ out,
                int* __restrict__ ws, int* __restrict__ tickets, int M, int K, int N,
                int Kp, int relu, int two_mul, int out_uint8) {
   constexpr int WROW = PACKED ? BK / 2 : BK;  // weight bytes per row per stage
@@ -124,6 +141,7 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   constexpr int XWORDS = BM * BK / 4 / THREADS;  // byte-staged x words per thread
   __shared__ __align__(128) uint8_t xs[STAGES][BM * BK];
   __shared__ __align__(128) uint8_t wsm[STAGES][BN * WROW];
+  __shared__ uint8_t tab[256];  // the activation table, when there is one
   __shared__ int s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -230,6 +248,14 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
     }
   };
 
+  // The table's bytes are loaded here and stored after the prologue, so
+  // their latency hides behind the first stages' copies.
+  uint8_t lut0 = 0, lut1 = 0;
+  if (lut != nullptr) {
+    lut0 = __ldg(lut + tid);
+    lut1 = __ldg(lut + tid + THREADS);
+  }
+
   // prologue: stages 0 .. STAGES-2 in flight (an empty group past the end);
   // byte-staged x loads every prologue stage before it stores any
   unsigned xr[STAGES - 1][XWORDS];
@@ -245,6 +271,13 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < STAGES - 1; ++i)
       if (i < count) store_x_bytes(i, xr[i]);
+  }
+  // Published by the mainloop's first barrier, which every thread of every
+  // block reaches (each split owns at least one stage); a split block that
+  // returns before the epilogue returns whole.
+  if (lut != nullptr) {
+    tab[tid] = lut0;
+    tab[tid + THREADS] = lut1;
   }
   for (int i = 0; i < count; ++i) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of stage i have landed
@@ -318,10 +351,14 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
       for (int h = 0; h < 2; ++h) {
         const int gm = m0 + wrow + mi * 16 + g + 8 * h;
         if (gm >= M || gn >= N) continue;
-        const uint8_t q0 =
+        uint8_t q0 =
             requant(acc[mi][ni][2 * h], bb[ni][0], sc[ni][0], sh[ni][0], relu, two_mul, lo, hi);
-        const uint8_t q1 = requant(acc[mi][ni][2 * h + 1], bb[ni][1], sc[ni][1], sh[ni][1], relu,
-                                   two_mul, lo, hi);
+        uint8_t q1 = requant(acc[mi][ni][2 * h + 1], bb[ni][1], sc[ni][1], sh[ni][1], relu,
+                             two_mul, lo, hi);
+        if (lut != nullptr) {  // q is an int8 code here: the table's index is q + 128
+          q0 = tab[(int)(int8_t)q0 + 128];
+          q1 = tab[(int)(int8_t)q1 + 128];
+        }
         uint8_t* o = out + (size_t)gm * N + gn;
         if ((N & 1) == 0) {  // gm·N + gn is even: one 16-bit store
           *reinterpret_cast<uint16_t*>(o) = (uint16_t)(q0 | (q1 << 8));
@@ -335,23 +372,23 @@ qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
 
 template <int BM, int STAGES, bool PACKED, bool X16>
 cudaError_t launch_one(cudaStream_t stream, const void* x, const void* w, const void* bias,
-                       const void* qs, const void* qsh, void* out, void* ws, void* tickets,
-                       int M, int K, int N, int Kp, int Np, int splits, int relu,
+                       const void* qs, const void* qsh, const void* lut, void* out, void* ws,
+                       void* tickets, int M, int K, int N, int Kp, int Np, int splits, int relu,
                        int two_mul, int out_uint8) {
   const dim3 grid((M + BM - 1) / BM, Np / BN, splits);
   qmatmul_kernel<BM, STAGES, PACKED, X16><<<grid, THREADS, 0, stream>>>(
       (const int8_t*)x, (const uint8_t*)w, (const int*)bias, (const float*)qs,
-      (const float*)qsh, (uint8_t*)out, (int*)ws, (int*)tickets, M, K, N, Kp, relu, two_mul,
-      out_uint8);
+      (const float*)qsh, (const uint8_t*)lut, (uint8_t*)out, (int*)ws, (int*)tickets, M, K, N,
+      Kp, relu, two_mul, out_uint8);
   return cudaGetLastError();
 }
 
 template <int BM, int STAGES>
 cudaError_t launch(bool packed, bool x16, cudaStream_t s, const void* x, const void* w,
-                   const void* bias, const void* qs, const void* qsh, void* out, void* ws,
-                   void* tickets, int M, int K, int N, int Kp, int Np, int splits, int relu,
-                   int two_mul, int out_uint8) {
-#define REPRO_QMM_ARGS s, x, w, bias, qs, qsh, out, ws, tickets, M, K, N, Kp, Np, splits, relu, two_mul, out_uint8
+                   const void* bias, const void* qs, const void* qsh, const void* lut, void* out,
+                   void* ws, void* tickets, int M, int K, int N, int Kp, int Np, int splits,
+                   int relu, int two_mul, int out_uint8) {
+#define REPRO_QMM_ARGS s, x, w, bias, qs, qsh, lut, out, ws, tickets, M, K, N, Kp, Np, splits, relu, two_mul, out_uint8
   if (packed && x16) return launch_one<BM, STAGES, true, true>(REPRO_QMM_ARGS);
   if (packed) return launch_one<BM, STAGES, true, false>(REPRO_QMM_ARGS);
   if (x16) return launch_one<BM, STAGES, false, true>(REPRO_QMM_ARGS);
@@ -359,30 +396,54 @@ cudaError_t launch(bool packed, bool x16, cudaStream_t s, const void* x, const v
 #undef REPRO_QMM_ARGS
 }
 
+template <int BM, int STAGES>
+cudaError_t attrs(bool packed, bool x16, cudaFuncAttributes* a) {
+  if (packed && x16) return cudaFuncGetAttributes(a, qmatmul_kernel<BM, STAGES, true, true>);
+  if (packed) return cudaFuncGetAttributes(a, qmatmul_kernel<BM, STAGES, true, false>);
+  if (x16) return cudaFuncGetAttributes(a, qmatmul_kernel<BM, STAGES, false, true>);
+  return cudaFuncGetAttributes(a, qmatmul_kernel<BM, STAGES, false, false>);
+}
+
 }  // namespace
 
 // x (M, K) int8 row-major; w (Np, Kp) int8, or (Np, Kp/2) uint8 when packed,
-// 16-byte aligned; bias (Np,) int32; qs, qsh (Np,) f32; out (M, N) int8/uint8
-// with N <= Np.  Kp % 64 == 0, Np % 64 == 0, 1 <= K <= Kp, bm in {16, 64},
-// 1 <= splits <= Kp / 64.  x16 = 1 stages x by 16-byte copies and needs
+// 16-byte aligned; bias (Np,) int32; qs, qsh (Np,) f32; lut null, or a
+// (256,) int8/uint8 table applied to the int8 code (then out_uint8 = 0);
+// out (M, N) int8/uint8 with N <= Np.  Kp % 64 == 0, Np % 64 == 0,
+// 1 <= K <= Kp, bm in {16, 64}, 1 <= splits <= Kp / 64.  x16 = 1 stages x by 16-byte copies and needs
 // K % 16 == 0 and x 16-byte aligned.  With splits > 1, ws holds
 // splits · ceil(M/bm) · (Np/64) · bm · 64 int32 and tickets ceil(M/bm) ·
 // (Np/64) int32, zero at entry and left zero.  Returns cudaGetLastError().
 extern "C" int repro_qmatmul(const void* x, const void* w, const void* bias, const void* qs,
-                             const void* qsh, void* out, void* ws, void* tickets, int M,
-                             int K, int N, int Kp, int Np, int bm, int splits, int x16,
-                             int packed, int relu, int two_mul, int out_uint8, void* stream) {
+                             const void* qsh, const void* lut, void* out, void* ws,
+                             void* tickets, int M, int K, int N, int Kp, int Np, int bm,
+                             int splits, int x16, int packed, int relu, int two_mul,
+                             int out_uint8, void* stream) {
   if (M <= 0) return (int)cudaSuccess;
   if (Kp % BK || Np % BN || K < 1 || K > Kp || N < 1 || N > Np || splits < 1 ||
       splits > Kp / BK || splits > 65535 || Np / BN > 65535 || (bm != 16 && bm != 64) ||
       reinterpret_cast<uintptr_t>(w) % 16 ||
       (x16 && (K % 16 || reinterpret_cast<uintptr_t>(x) % 16)) ||
-      (splits > 1 && (ws == nullptr || tickets == nullptr)))
+      (splits > 1 && (ws == nullptr || tickets == nullptr)) || (lut != nullptr && out_uint8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bm == 16)
-    return (int)launch<16, 6>(packed != 0, x16 != 0, s, x, w, bias, qs, qsh, out, ws, tickets,
-                              M, K, N, Kp, Np, splits, relu, two_mul, out_uint8);
-  return (int)launch<64, 4>(packed != 0, x16 != 0, s, x, w, bias, qs, qsh, out, ws, tickets, M,
-                            K, N, Kp, Np, splits, relu, two_mul, out_uint8);
+    return (int)launch<16, 6>(packed != 0, x16 != 0, s, x, w, bias, qs, qsh, lut, out, ws,
+                              tickets, M, K, N, Kp, Np, splits, relu, two_mul, out_uint8);
+  return (int)launch<64, 4>(packed != 0, x16 != 0, s, x, w, bias, qs, qsh, lut, out, ws,
+                            tickets, M, K, N, Kp, Np, splits, relu, two_mul, out_uint8);
+}
+
+// The static shared memory (bytes) and registers per thread of the kernel
+// instance a launch with (bm, packed, x16) takes, as the driver reports
+// them.  Returns the cudaError_t of cudaFuncGetAttributes.
+extern "C" int repro_qmatmul_attrs(int bm, int packed, int x16, int* shared_bytes, int* regs) {
+  if (bm != 16 && bm != 64) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t rc = bm == 16 ? attrs<16, 6>(packed != 0, x16 != 0, &a)
+                                  : attrs<64, 4>(packed != 0, x16 != 0, &a);
+  if (rc != cudaSuccess) return (int)rc;
+  *shared_bytes = (int)a.sharedSizeBytes;
+  *regs = a.numRegs;
+  return (int)cudaSuccess;
 }

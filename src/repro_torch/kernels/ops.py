@@ -221,10 +221,12 @@ def quantized_matmul_planned(
     out_dtype: torch.dtype = torch.int8,
     relu: bool = False,
     two_mul: bool = True,
+    lut: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Shape-specialized fused matmul over arbitrary leading dims: nothing is
     padded per call (the kernel masks the ragged M and K edges), and
-    ``shape["bits"] == 4`` selects the packed-int4 kernel."""
+    ``shape["bits"] == 4`` selects the packed-int4 kernel.  ``lut`` is an
+    activation table applied in the epilogue (the output takes its dtype)."""
     k, n = shape["k"], shape["n"]
     lead = x_q.shape[:-1]
     if x_q.shape[-1] != k:
@@ -233,7 +235,7 @@ def quantized_matmul_planned(
     kernel = _qmm.qmatmul_packed if shape.get("bits", 8) == 4 else _qmm.qmatmul
     out = kernel(
         x2, w2, b2, qs2, qsh2, n=n, out_dtype=out_dtype, relu=relu, two_mul=two_mul,
-        bm=shape["bm"], splits=shape["splits"],
+        bm=shape["bm"], splits=shape["splits"], lut=lut,
     )
     return out.reshape(tuple(lead) + (n,))
 

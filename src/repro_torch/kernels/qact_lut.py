@@ -9,6 +9,11 @@ QuantizeLinear``; since the chain's input is int8 it is a pure function of
 semantics (:func:`build_lut`) and the kernel is a byte gather
 ``out = table[x + 128]`` — bit-exact against the reference by construction.
 
+On the main path the table does not run here: where a LUT reads a fused
+matmul's output and nothing else does, the plan hands the table to that
+matmul's epilogue (:mod:`repro_torch.kernels.qmatmul`, ``lut=``).  This
+kernel serves every LUT the plan does not fold.
+
 The kernel takes a contiguous tensor of any shape as a flat byte array, at
 any alignment, with no padding.  What bounds it on an H100 and what its
 design does about it is in the note at the top of ``csrc/qact_lut.cu``.

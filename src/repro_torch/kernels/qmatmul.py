@@ -6,7 +6,7 @@ Replaces ``repro/kernels/qmatmul.py::qmatmul`` (int8 weights) and
 ``::qmatmul_packed`` (int4 weights, two nibbles per byte).  Both compute
 
     int8 x · W → int32 → + bias → f32 → × quant_scale [→ × quant_shift]
-    → [ReLU] → round half to even → clip to int8 / uint8
+    → [ReLU] → round half to even → clip to int8 / uint8 [→ lut[q + 128]]
 
 on operands the plan template prepared once: the weight stored K-contiguous
 as ``(Np, Kp)`` int8 — or ``(Np, Kp // 2)`` uint8 nibble pairs, byte
@@ -31,20 +31,31 @@ the epilogue).  Its int32 workspace and per-tile tickets are allocated by
 the wrapper, once per device and stream, and grown when a call needs more
 (the tickets by ``torch.zeros``; each call leaves them zero).
 
+With ``lut`` — a contiguous ``(256,)`` int8 or uint8 table on x's device —
+the epilogue computes the int8 code ``q`` as without one and stores
+``lut[q + 128]``: the exact activation table of
+:mod:`repro_torch.kernels.qact_lut`, applied in registers where the plan
+folds a LUT step into the matmul that feeds it (``core/compile.py``).  The
+output then has the table's dtype, and ``out_dtype`` must be int8.  A table
+the kernel cannot take is refused with a ``ValueError``.
+
 A wrapper runs the plain version only for tensors on the CPU (that is how
 the CPU tests reach the planned path); for CUDA tensors it launches the
-kernel or raises.  :data:`LAUNCHES` counts kernel launches, nothing else.
+kernel or raises.  :data:`LAUNCHES` counts kernel launches, nothing else:
+each launch under its lane's name, and a launch that carried a table under
+``qmatmul_lut`` as well.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from . import _build
 from . import ref as _ref
+from .qact_lut import qact_lut_plain
 
 #: The kernel's compile-time tiles: Kp and Np pad to multiples of BK / BN;
 #: bm (the rows per block) is one of SUPPORTED_BM, chosen per bucket.
@@ -59,10 +70,12 @@ INSTRUCTION = "mma.sync.m16n8k32.s32.s8.s8.s32"
 #: as many blocks.
 NUM_SMS = 132
 
-#: Kernel launches since the last reset, by kernel name.
-LAUNCHES: Dict[str, int] = {"qmatmul": 0, "qmatmul_packed": 0}
+#: Kernel launches since the last reset, by kernel name: each lane's, and
+#: ``qmatmul_lut`` for the launches (of either lane) that carried a table.
+LAUNCHES: Dict[str, int] = {"qmatmul": 0, "qmatmul_packed": 0, "qmatmul_lut": 0}
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_ATTR_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 #: Split-K scratch, (int32 workspace, int32 tickets), by (device, stream).
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -118,6 +131,35 @@ def route(x_q: torch.Tensor, bm: int, splits: int) -> Dict[str, object]:
             "stages": STAGES[bm], "staging": "cp.async16" if x16 else "bytes"}
 
 
+def kernel_attrs(bm: int, packed: bool, x16: bool) -> Dict[str, int]:
+    """The static shared memory (bytes) and registers per thread of the
+    kernel instance a launch with ``(bm, packed, x16)`` takes, as
+    ``cudaFuncGetAttributes`` reports them (needs the card)."""
+    shared, regs = ctypes.c_int(0), ctypes.c_int(0)
+    fn = _build.function("qmatmul", "repro_qmatmul_attrs", _ATTR_ARGTYPES)
+    _build.check(fn(bm, int(packed), int(x16), ctypes.byref(shared), ctypes.byref(regs)),
+                 "qmatmul attributes")
+    return {"shared_bytes": shared.value, "regs": regs.value}
+
+
+def check_lut(name: str, x_q: torch.Tensor, lut, out_dtype: torch.dtype) -> None:
+    """Refuse a table the epilogue cannot take: it must be a contiguous
+    ``(256,)`` int8/uint8 tensor on x's device, applied to int8 codes."""
+    if lut is None:
+        return
+    if not isinstance(lut, torch.Tensor) or lut.shape != (256,) \
+            or lut.dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"{name}: lut must be a (256,) int8/uint8 tensor, got "
+                         f"{getattr(lut, 'dtype', type(lut).__name__)}"
+                         f"{tuple(getattr(lut, 'shape', ()))}")
+    if lut.device != x_q.device or not lut.is_contiguous():
+        raise ValueError(f"{name}: lut must be contiguous and on x's device {x_q.device}, "
+                         f"got {lut.device}")
+    if out_dtype != torch.int8:
+        raise ValueError(f"{name}: a lut indexes int8 codes, so out_dtype must be int8, "
+                         f"got {out_dtype} (the output takes the table's dtype)")
+
+
 def _scratch(device: torch.device, stream: int, ws_numel: int, tiles: int):
     """The split-K workspace and tickets for one stream, grown to size."""
     key = (device.index, stream)
@@ -153,14 +195,18 @@ def qmatmul_plain(
     two_mul: bool = True,
     bm: int = BM,
     splits: int = 1,
+    lut: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`qmatmul`: same operands, same
-    result ``(M, n)``; the tiles and splits do not change it."""
+    result ``(M, n)``; the tiles and splits do not change it.  With a table
+    it is the matmul and then the plain table gather."""
+    check_lut("qmatmul", x_q, lut, out_dtype)
     k = x_q.shape[1]
-    return _ref.qmatmul_ref(
+    out = _ref.qmatmul_ref(
         x_q, w_q[:n, :k].t(), bias_q[0, :n], quant_scale[0, :n], quant_shift[0, :n],
         out_dtype=out_dtype, relu=relu, two_mul=two_mul,
     )
+    return out if lut is None else qact_lut_plain(out, lut)
 
 
 def qmatmul_packed_plain(
@@ -176,18 +222,20 @@ def qmatmul_packed_plain(
     two_mul: bool = True,
     bm: int = BM,
     splits: int = 1,
+    lut: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`qmatmul_packed`."""
     return qmatmul_plain(
         x_q, unpack_int4_nk(w_p), bias_q, quant_scale, quant_shift,
-        n=n, out_dtype=out_dtype, relu=relu, two_mul=two_mul,
+        n=n, out_dtype=out_dtype, relu=relu, two_mul=two_mul, lut=lut,
     )
 
 
 def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dtype, relu,
-            two_mul, bm, splits):
+            two_mul, bm, splits, lut):
     if x_q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on a CUDA device or the CPU, got {x_q.device}")
+    check_lut(name, x_q, lut, out_dtype)
     m, k = x_q.shape
     np_, kcols = w.shape
     kp = 2 * kcols if packed else kcols
@@ -212,7 +260,7 @@ def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dt
     if bias_q.dtype != torch.int32 or bias_q.numel() != np_ or quant_scale.numel() != np_ \
             or quant_shift.numel() != np_:
         raise ValueError(f"{name}: bias/scales must be ({np_},) rows, bias int32")
-    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
+    out = torch.empty((m, n), dtype=out_dtype if lut is None else lut.dtype, device=x_q.device)
     x16 = route(x_q, bm, splits)["staging"] == "cp.async16"
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
     ws_ptr = tickets_ptr = None
@@ -223,35 +271,43 @@ def _launch(name, packed, x_q, w, bias_q, quant_scale, quant_shift, *, n, out_dt
     fn = _build.function("qmatmul", "repro_qmatmul", _ARGTYPES)
     rc = fn(
         x_q.data_ptr(), w.data_ptr(), bias_q.data_ptr(), quant_scale.data_ptr(),
-        quant_shift.data_ptr(), out.data_ptr(), ws_ptr, tickets_ptr, m, k, n, kp, np_, bm,
-        splits, int(x16), int(packed), int(relu), int(two_mul), int(out_dtype == torch.uint8),
-        stream,
+        quant_shift.data_ptr(), None if lut is None else lut.data_ptr(), out.data_ptr(),
+        ws_ptr, tickets_ptr, m, k, n, kp, np_, bm, splits, int(x16), int(packed), int(relu),
+        int(two_mul), int(out_dtype == torch.uint8), stream,
     )
     _build.check(rc, name)
     LAUNCHES[name] += 1
+    if lut is not None:
+        LAUNCHES["qmatmul_lut"] += 1
     return out
 
 
 def qmatmul(x_q, w_q, bias_q, quant_scale, quant_shift, *, n: int,
             out_dtype: torch.dtype = torch.int8, relu: bool = False,
-            two_mul: bool = True, bm: int = BM, splits: int = 1) -> torch.Tensor:
+            two_mul: bool = True, bm: int = BM, splits: int = 1,
+            lut: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused int8 matmul ``(M, K) × (Np, Kp)ᵀ → (M, n)`` (operands as
-    :func:`qmatmul_plain` takes them): the CUDA kernel on the card, the
-    plain version on the CPU."""
+    :func:`qmatmul_plain` takes them), with an optional activation table in
+    its epilogue: the CUDA kernel on the card, the plain version on the CPU."""
     if x_q.device.type == "cpu":
         return qmatmul_plain(x_q, w_q, bias_q, quant_scale, quant_shift, n=n,
-                             out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm)
+                             out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm, lut=lut)
     return _launch("qmatmul", False, x_q, w_q, bias_q, quant_scale, quant_shift, n=n,
-                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm, splits=splits)
+                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm, splits=splits,
+                   lut=lut)
 
 
 def qmatmul_packed(x_q, w_p, bias_q, quant_scale, quant_shift, *, n: int,
                    out_dtype: torch.dtype = torch.int8, relu: bool = False,
-                   two_mul: bool = True, bm: int = BM, splits: int = 1) -> torch.Tensor:
+                   two_mul: bool = True, bm: int = BM, splits: int = 1,
+                   lut: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused packed-int4 matmul ``(M, K) × (Np, Kp // 2)`` nibble pairs →
-    ``(M, n)``: the CUDA kernel on the card, the plain version on the CPU."""
+    ``(M, n)``, table optional: the CUDA kernel on the card, the plain
+    version on the CPU."""
     if x_q.device.type == "cpu":
         return qmatmul_packed_plain(x_q, w_p, bias_q, quant_scale, quant_shift, n=n,
-                                    out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm)
+                                    out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm,
+                                    lut=lut)
     return _launch("qmatmul_packed", True, x_q, w_p, bias_q, quant_scale, quant_shift, n=n,
-                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm, splits=splits)
+                   out_dtype=out_dtype, relu=relu, two_mul=two_mul, bm=bm, splits=splits,
+                   lut=lut)

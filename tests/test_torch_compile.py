@@ -9,9 +9,14 @@
   and ``cuda`` backends (on the CPU the ``cuda`` wrappers run their plain
   versions), static and over dynamic batch buckets;
 * specializations share the template's const tensors;
+* on ``cuda`` a LUT step folds into the epilogue of the matmul that alone
+  feeds it (and a uint8 table read only by ``x_uint8`` matmuls is stored
+  shifted): the fold's rules case by case, its plan record, and outputs
+  equal to ``repro``'s ``interpret`` backend and ``ReferenceRuntime``;
 * the paper's Tanh/Sigmoid MLP (both tanh modes) and a per-channel CNN,
   static and over dynamic batch buckets, on both port backends: the fused
-  stats and step kernel ids of ``repro``'s plan, and outputs equal to
+  stats and step kernel ids of ``repro``'s plan (on ``cuda`` less the
+  folded LUT steps), and outputs equal to
   ``repro``'s ``interpret`` backend (its Pallas kernels in interpret mode)
   and ``ReferenceRuntime``.
 
@@ -203,7 +208,16 @@ def test_unported_kernel_raises_on_cuda_and_runs_on_ref(graph, kernel, stat):
     model, feeds = graph(np.random.default_rng(5))
     for backend in ("ref", "cuda"):
         cm = compile_model(_port(model), backend=backend, device="cpu")
-        assert cm.stats[stat] == 1 and kernel in [s.kernel for s in cm.plan.steps]
+        kernels = [s.kernel for s in cm.plan.steps]
+        assert cm.stats[stat] == 1
+        if backend == "cuda" and kernel == "qact_lut":
+            # the table rides in the epilogue of the matmul that feeds it
+            (step,) = cm.plan.steps
+            assert kernels == ["qlinear_matmul"] and step.params["lut"] == "Tanh"
+            assert step.consts[4].dtype == torch.int8 and step.consts[4].shape == (256,)
+            assert cm.stats["lut_epilogues"] == 1
+        else:
+            assert kernel in kernels
         for k, v in ReferenceRuntime(model).run(feeds).items():
             np.testing.assert_array_equal(cm.run(feeds)[k].numpy(), v)
     with pytest.raises(UnknownKernelError, match="no_such_kernel"):
@@ -257,10 +271,15 @@ def test_paper_models_match_repro(graph, batch, backend):
     model, x = PAPER_GRAPHS[graph]()
     jcm = jcompile(model, backend="interpret", batch=batch)
     cm = compile_model(_port(model), backend=backend, device="cpu", batch=batch)
-    assert [s.kernel for s in cm.plan.steps] == [s.kernel for s in jcm.plan.steps]
+    jkernels = [s.kernel for s in jcm.plan.steps]
+    # ref keeps repro's plan step for step; cuda folds every LUT of these
+    # graphs into the matmul that feeds it
+    want = jkernels if backend == "ref" else [k for k in jkernels if k != "qact_lut"]
+    assert [s.kernel for s in cm.plan.steps] == want
     for stat in ("fused_qlinear", "fused_qconv", "fused_lut", "generic"):
         assert cm.stats[stat] == jcm.stats[stat], stat
     assert cm.stats["fused_lut"] == (2 if graph.startswith("mlp") else 0)
+    assert cm.stats["lut_epilogues"] == (cm.stats["fused_lut"] if backend == "cuda" else 0)
     assert cm.stats["fused_qconv"] == (2 if graph == "cnn" else 0)
     rt = ReferenceRuntime(model)
     for n in ((len(x),) if batch == "static" else (1, 3, len(x))):
@@ -270,6 +289,161 @@ def test_paper_models_match_repro(graph, batch, backend):
         for k, w in want.items():
             np.testing.assert_array_equal(got[k].numpy(), w)
             np.testing.assert_array_equal(np.asarray(jgot[k]), w)
+
+
+def _assert_like_repro(model, feeds_list, cm, batch):
+    """Outputs of ``cm`` equal ``repro``'s interpret backend and
+    ``ReferenceRuntime`` on every feed dict."""
+    jcm = jcompile(model, backend="interpret", batch=batch)
+    rt = ReferenceRuntime(model)
+    for feeds in feeds_list:
+        got, jgot = cm.run(feeds), jcm.run(feeds)
+        for k, w in rt.run(feeds).items():
+            assert got[k].numpy().dtype == w.dtype
+            np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+            np.testing.assert_array_equal(np.asarray(jgot[k]), w, err_msg=k)
+
+
+@pytest.mark.parametrize("batch", ["static", "dynamic"])
+@pytest.mark.parametrize("tanh_mode", ["int8", "fp16"])
+def test_lut_folds_into_the_matmul_epilogue(tanh_mode, batch):
+    """The paper MLP on cuda: three matmul steps, the Tanh table (int8) in
+    the first's epilogue, the Sigmoid table stored shifted (u − 128 as int8)
+    in the second's, and the last FC reads int8 with no shift launch."""
+    model, x = _paper_mlp(tanh_mode)
+    cm = compile_model(_port(model), backend="cuda", device="cpu", batch=batch)
+    ref = compile_model(_port(model), backend="ref", device="cpu", batch=batch)
+    steps = cm.plan.steps
+    assert [s.kernel for s in steps] == ["qlinear_matmul"] * 3
+    assert [s.params.get("lut") for s in steps] == ["Tanh", "Sigmoid,u8-128", None]
+    assert cm.stats["lut_epilogues"] == cm.stats["fused_lut"] == 2
+    assert not steps[2].params.get("x_uint8") and steps[1].out_info[0].dtype == "int8"
+    tables = [s.consts[0] for s in ref.plan.steps if s.kernel == "qact_lut"]
+    assert torch.equal(steps[0].consts[4], tables[0]) and tables[1].dtype == torch.uint8
+    assert torch.equal(steps[1].consts[4], (tables[1] ^ 128).view(torch.int8))
+    lines = [f for f in cm.plan.provenance.fusions if f.pattern == "lut_epilogue"]
+    assert [f.anchor for f in lines] == [steps[0].name, steps[1].name]
+    ns = (len(x),) if batch == "static" else (1, 3, len(x))
+    _assert_like_repro(model, [{"input_q": x[:n]} for n in ns], cm, batch)
+
+
+def _lut(gb, q, prefix, act, out_dtype):
+    """DQL → act → QL on the int8 tensor ``q`` (the paper's Fig 4/6 chain);
+    returns the activation's tensor name."""
+    s = gb.add_initializer(f"{prefix}_dq_scale", np.float32(4.0 / 127.0))
+    zp = gb.add_initializer(f"{prefix}_dq_zp", np.zeros((), np.int8))
+    deq = gb.op("DequantizeLinear", [q, s, zp], out_hint=f"{prefix}_deq")
+    a = gb.op(act, [deq], out_hint=f"{prefix}_act")
+    qs = gb.add_initializer(f"{prefix}_q_scale", np.float32(1 / 127 if act == "Tanh" else 1 / 255))
+    qz = gb.add_initializer(f"{prefix}_q_zp", np.zeros((), out_dtype))
+    return gb.op("QuantizeLinear", [a, qs, qz], out_hint=f"{prefix}_req")
+
+
+def _fc_lut(gb, x, p, prefix, act, out_dtype):
+    """An FC whose int8 output goes through the LUT chain; returns
+    (pre-activation, activation) tensor names."""
+    q = fc_layer(gb, x, p, prefix, two_mul=act == "Tanh")
+    return q, _lut(gb, q, prefix, act, out_dtype)
+
+
+def _fc_params(rng, k, n, in_dtype="int8"):
+    w = rng.normal(size=(k, n)).astype(np.float32) * 0.3
+    b = rng.normal(size=(n,)).astype(np.float32) * 0.1
+    return quant.quantize_linear_layer(w, b, 0.05, 0.05, in_dtype=in_dtype)
+
+
+def _refused_fold_graph(case, rng):
+    """An FC → Tanh that must not fold, a LUT on a graph input, and an FC →
+    Tanh (int8) → Tanh chain whose second LUT must not fold."""
+    gb = GraphBuilder(f"nofold_{case}")
+    gb.add_input("x", "int8", (None, 16))
+    if case == "graph_input":
+        gb.add_output(_lut(gb, "x", "l0", "Tanh", "int8"), "int8", (None, 16))
+        return gb.build(opset=17)
+    q, y = _fc_lut(gb, "x", _fc_params(rng, 16, 8), "l0", "Tanh", "int8")
+    if case == "lut_chain":  # the int8 Tanh output is int8-symmetric: a LUT matches on it
+        gb.add_output(_lut(gb, y, "l1", "Tanh", "int8"), "int8", (None, 8))
+        return gb.build(opset=17)
+    gb.add_output(y, "int8", (None, 8))
+    if case == "preact_is_output":
+        gb.add_output(q, "int8", (None, 8))
+    else:  # second_reader: another FC reads the pre-activation too
+        gb.add_output(fc_layer(gb, q, _fc_params(rng, 8, 6), "l1"), "int8", (None, 6))
+    return gb.build(opset=17)
+
+
+@pytest.mark.parametrize("case", ["preact_is_output", "second_reader", "graph_input", "lut_chain"])
+def test_lut_stays_standalone_where_the_fold_rules_refuse(case):
+    """A LUT whose input is also a graph output, has a second reader, or is
+    a graph input keeps its own qact_lut step on cuda; of a LUT → LUT chain
+    the first folds and the second stays, since a matmul takes one table."""
+    rng = np.random.default_rng(23)
+    model = _refused_fold_graph(case, rng)
+    cm = compile_model(_port(model), backend="cuda", device="cpu")
+    folds = 1 if case == "lut_chain" else 0
+    assert cm.stats["fused_lut"] == 1 + folds and cm.stats["lut_epilogues"] == folds
+    assert [s.kernel for s in cm.plan.steps].count("qact_lut") == 1
+    assert [s.params.get("lut") for s in cm.plan.steps if "lut" in s.params] == ["Tanh"] * folds
+    assert all(len(s.consts) <= 5 for s in cm.plan.steps if s.kernel == "qlinear_matmul")
+    _assert_like_repro(model, [{"x": rng.integers(-128, 128, (5, 16)).astype(np.int8)}], cm,
+                       "static")
+
+
+def _sigmoid_readers_graph(case, rng):
+    """FC → Sigmoid (uint8) read by two FCs, or by an FC and a graph output,
+    or by an FC and a generic Cast."""
+    gb = GraphBuilder(f"sigmoid_{case}")
+    gb.add_input("x", "int8", (None, 16))
+    _, u = _fc_lut(gb, "x", _fc_params(rng, 16, 24), "l0", "Sigmoid", "uint8")
+    y1 = fc_layer(gb, u, _fc_params(rng, 24, 8, "uint8"), "l1")
+    gb.add_output(y1, "int8", (None, 8))
+    if case == "two_fcs":
+        gb.add_output(fc_layer(gb, u, _fc_params(rng, 24, 6, "uint8"), "l2"), "int8", (None, 6))
+    elif case == "fc_and_output":
+        gb.add_output(u, "uint8", (None, 24))
+    else:  # fc_and_generic
+        gb.add_output(gb.op("Cast", [u], out_hint="wide", to="int32"), "int32", (None, 24))
+    return gb.build(opset=17)
+
+
+@pytest.mark.parametrize("case", ["two_fcs", "fc_and_output", "fc_and_generic"])
+def test_shift_fold_needs_every_reader_an_x_uint8_matmul(case):
+    """A folded Sigmoid table is stored shifted only where every reader of
+    its output is an x_uint8 matmul; otherwise it stays uint8 and the
+    readers keep their shift."""
+    rng = np.random.default_rng(29)
+    model = _sigmoid_readers_graph(case, rng)
+    cm = compile_model(_port(model), backend="cuda", device="cpu")
+    steps = cm.plan.steps
+    assert cm.stats["lut_epilogues"] == 1 and "qact_lut" not in [s.kernel for s in steps]
+    head = steps[0]
+    readers = [s for s in steps[1:] if s.kernel == "qlinear_matmul"]
+    if case == "two_fcs":
+        assert head.params["lut"] == "Sigmoid,u8-128" and head.consts[4].dtype == torch.int8
+        assert len(readers) == 2 and not any(r.params.get("x_uint8") for r in readers)
+        assert head.out_info[0].dtype == "int8"
+    else:
+        assert head.params["lut"] == "Sigmoid,u8" and head.consts[4].dtype == torch.uint8
+        assert len(readers) == 1 and readers[0].params["x_uint8"]
+        assert head.out_info[0].dtype == "uint8"
+    _assert_like_repro(model, [{"x": rng.integers(-128, 128, (7, 16)).astype(np.int8)}], cm,
+                       "static")
+
+
+def test_plan_printout_shows_the_lut_epilogue():
+    """print(plan) shows the table on the matmul step's record; every
+    specialization keeps the record and shares the template's table."""
+    model, _ = _paper_mlp("fp16")
+    cm = compile_model(_port(model), backend="cuda", device="cpu", batch="dynamic")
+    text = str(cm.plan)
+    assert "lut=Tanh," in text and "lut=Sigmoid,u8-128," in text and "qact_lut" not in text
+    assert "lut_epilogue @" in cm.plan.pretty(verbose=True)
+    tables = [s.consts[4] for s in cm.plan.steps if "lut" in s.params]
+    for bucket in (1, 4):
+        spec, _ = cm.specialized(bucket)
+        assert [s.params.get("lut") for s in spec.steps] == ["Tanh", "Sigmoid,u8-128", None]
+        assert all(s.consts[4] is t for s, t in zip(spec.steps, tables))
+        assert "lut=Sigmoid,u8-128" in str(spec)
 
 
 def test_conv_template_records_and_shared_tensors():

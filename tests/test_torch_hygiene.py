@@ -27,7 +27,8 @@ from repro_torch.serving.token_path import CompiledTokenPath, TokenPathConfig
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "qmatmul_ab.py",
-                                        ROOT / "scripts" / "qattention_ab.py"]
+                                        ROOT / "scripts" / "qattention_ab.py",
+                                        ROOT / "scripts" / "qact_lut_ab.py"]
 
 
 def _forbidden(module: str) -> bool:

@@ -91,6 +91,69 @@ def test_qmatmul_plain_matches_repro(m, k, n, bits, relu, two_mul, out, per_chan
     np.testing.assert_array_equal(got_ref.numpy(), want_ref)
 
 
+#: The tables a folded LUT brings into the matmul epilogue: int8 (Tanh),
+#: uint8 (Sigmoid), and uint8 stored shifted to int8 (Sigmoid → FC).
+LUT_KINDS = ["int8", "uint8", "uint8-128"]
+
+
+@pytest.mark.parametrize("lut_kind", LUT_KINDS)
+@pytest.mark.parametrize("m,k,n,bits,relu,two_mul,out,per_channel", MATMUL_CASES)
+def test_qmatmul_table_epilogue_matches_repro(m, k, n, bits, relu, two_mul, out, per_channel,
+                                               lut_kind):
+    """The matmul with a table in its epilogue equals ``repro``'s Pallas
+    qmatmul followed by its Pallas qact_lut (both in interpret mode); the
+    shifted table equals that uint8 result minus 128.  A table indexes int8
+    codes, so every case requantizes to int8 (``out`` is not used)."""
+    x, w, b, qs, qsh = _matmul_inputs(m, k, n, bits, per_channel, seed=m * 1000 + k + n)
+    rng = np.random.default_rng(m + k + n + len(lut_kind))
+    dt = "int8" if lut_kind == "int8" else "uint8"
+    info = np.iinfo(dt)
+    table = rng.integers(info.min, info.max + 1, (256,)).astype(dt)
+    jconsts, jshape = jops.specialize_qmatmul_params(w, b, qs, qsh, m=m, weight_bits=bits)
+    pre = jops.quantized_matmul_planned(
+        jnp.asarray(x), *jconsts, jshape, out_dtype=jnp.int8, relu=relu, two_mul=two_mul,
+        interpret=True,
+    )
+    want = np.asarray(jqact.qact_lut(pre, jnp.asarray(table), block=512, interpret=True))
+    if lut_kind == "uint8-128":
+        want = (want.astype(np.int16) - 128).astype(np.int8)
+        table = (table ^ 0x80).view(np.int8)
+
+    consts, shape = ops.specialize_qmatmul_params(w, b, qs, qsh, m=m, weight_bits=bits)
+    kern = qmatmul.qmatmul_packed if bits == 4 else qmatmul.qmatmul
+    plain = qmatmul.qmatmul_packed_plain if bits == 4 else qmatmul.qmatmul_plain
+    tx, tl = torch.from_numpy(x), torch.from_numpy(table)
+    kw = dict(n=n, relu=relu, two_mul=two_mul, bm=shape["bm"], splits=shape["splits"], lut=tl)
+    before = launch_counts()
+    for got in (kern(tx, *consts, **kw), plain(tx, *consts, **kw),
+                ops.quantized_matmul_planned(tx, *consts, shape, relu=relu, two_mul=two_mul,
+                                             lut=tl)):
+        assert got.dtype == tl.dtype and got.shape == (m, n)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda: torch.zeros(255, dtype=torch.int8), r"\(256,\) int8/uint8"),
+    (lambda: torch.zeros(256, dtype=torch.int32), r"\(256,\) int8/uint8"),
+    (lambda: torch.zeros(512, dtype=torch.uint8)[::2], "contiguous"),
+    (lambda: torch.zeros(256, dtype=torch.int8, device="meta"), "x's device"),
+    (lambda: torch.zeros(256, dtype=torch.uint8), "out_dtype must be int8"),
+])
+def test_qmatmul_refuses_tables_it_cannot_take(bad, match):
+    """A table of the wrong shape, dtype, layout or device, or one asked to
+    index uint8 codes, raises; the wrapper never drops it silently."""
+    x, w, b, qs, qsh = _matmul_inputs(4, 64, 64, 8, False, seed=0)
+    consts, shape = ops.specialize_qmatmul_params(w, b, qs, qsh, m=4)
+    out = torch.uint8 if "out_dtype" in match else torch.int8
+    for kern in (qmatmul.qmatmul, qmatmul.qmatmul_plain):
+        with pytest.raises(ValueError, match=match):
+            kern(torch.from_numpy(x), *consts, n=64, bm=16, out_dtype=out, lut=bad())
+    with pytest.raises(ValueError, match=match):
+        ops.quantized_matmul_planned(torch.from_numpy(x), *consts, shape, out_dtype=out,
+                                     lut=bad())
+
+
 def _attention_inputs(b, s, t, dh, seed, causal):
     rng = np.random.default_rng(seed)
     q = rng.integers(-128, 128, (b, s, dh)).astype(np.int8)
