@@ -39,12 +39,30 @@ Drives the port's main path on one CUDA card and fails loudly:
 6. slice B — the paper's §5 CNN (stride-2 ConvInteger stack with ResNet-18's
    stage widths, 7×7/2 stem, 1000-way FC head, 3×224×224 input), served
    the same way;
-7. summary — one JSON line of the kernels with their launch counts summed
-   over the counted runs of phases 4–6, then the card line, then the
+7. autotune — the measured tile search (``repro_torch.backend.autotune``)
+   on phase 4's token path: cold, it tunes the prefill (4,128) and decode
+   (4,512) cells into a tile cache under ``chiprun_out/`` (every fused
+   step ``[tuned]``; qmatmul, qmatmul_packed and qattention candidates all
+   launched); warm, a second token path on that cache measures nothing
+   (every step ``[cache]``); both equal phase 4's ``ref`` run bit for bit.
+   The tuned decode plan is saved as an AOT artifact
+   (``repro_torch.backend.artifact``) and served by a fresh process
+   (``chip_smoke.py --load-artifact``, importing only ``repro_torch``) with
+   no fuse/lower span and no plan-cache miss, its outputs equal to the
+   ``ref`` backend's; ``scripts/plan_diff.py`` self-diffs it identical.
+   Slice A is served with a background tuner (``tuned_swaps`` >= 1,
+   nothing pending, responses equal to ``ref``).  Log lines give heuristic
+   vs winning tiles per tuned step shape and the phase's wall times;
+8. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–7, then the card line, then the
    ``{"ok": true, ...}`` line.
 
-Each of phases 4–6 zeroes the launch counters just before its counted run
+Each of phases 4–7 zeroes the launch counters just before each counted run
 and reads them just after; a kernel of that path launched no time fails.
+Phase 7's served runs are the tuned and the warm-started token path's
+drives; the launches of the tuner's candidates (timed on synthetic inputs,
+also between the slice A server's batches) are read on their own and kept
+in ``chiprun_out/chip_smoke.json`` only.
 
 Any mismatch or exception exits non-zero; nothing falls back to the CPU or
 to a kernel's plain version.  Run from the repository root:
@@ -55,6 +73,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -64,9 +83,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: Depth cut of the 28-layer configuration (widths are full).
 N_LAYERS = 8
-#: H100 SXM peaks the bounds are computed from (NVIDIA data sheet, dense).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT8_OPS_PER_S = 1979e12
 #: Timing: launches per median, after warm-up.
 REPS, WARMUP = 25, 3
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -85,8 +101,16 @@ def card_line() -> str:
 
 
 def bound_ms(nbytes: float, ops: float):
-    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT8_OPS_PER_S * 1e3
+    """The least time (ms) the card could take for ``nbytes`` moved and
+    ``ops`` int8 operations, and which of the two bounds it: the H100 SXM
+    data sheet's peaks (dense), held by the port's cost model
+    (``repro_torch.backend.cost.H100_SXM``).  Imported here, not at the
+    top: ``scripts/qact_lut_ab.py --parent`` imports this module before it
+    puts an earlier tree's ``repro_torch`` first on the path."""
+    from repro_torch.backend.cost import roofline_terms
+
+    t = roofline_terms(ops, nbytes)
+    t_mem, t_ops = t["t_mem_s"] * 1e3, t["t_ops_s"] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -519,7 +543,7 @@ def run_slice(device):
     dec_toks = rng.integers(1, cfg.vocab, (steps, n, 1)).astype(np.int32)
     prompts = [rng.integers(1, cfg.vocab, (p,)).astype(np.int32) for p in (17, 64, 100, 200)]
 
-    def drive(tp):
+    def drive(tp, engine=True):
         """Prefill (4,128), 8 decode steps at (4,512), then 4 engine requests."""
         out = {}
         torch.cuda.synchronize()
@@ -541,6 +565,8 @@ def run_slice(device):
             step_logits.append(lg)
         out["decode"] = (step_logits, cache)
         out["decode_ms"] = sorted(step_ms)[len(step_ms) // 2]
+        if not engine:
+            return out
         eng = ServeEngine(EngineConfig(slots=4, max_len=512, prefill_bucket=32),
                           adapter=CompiledTokenAdapter(tp))
         reqs = [Request(uid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
@@ -565,18 +591,7 @@ def run_slice(device):
     peak = torch.cuda.max_memory_allocated(device)
     want = drive(tps["ref"])
 
-    (gl, gc), (wl, wc) = got["prefill"], want["prefill"]
-    if gl.shape != (n, plen, cfg.vocab) or not bool(torch.isfinite(gl).all()):
-        raise AssertionError(f"prefill logits: shape {tuple(gl.shape)} or non-finite values")
-    _same(gl, wl, "prefill logits")
-    for name in wc:
-        _same(gc[name], wc[name], f"prefill state {name}")
-    for i, (a, b) in enumerate(zip(got["decode"][0], want["decode"][0])):
-        if a.shape != (n, cfg.vocab) or not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"decode step {i} logits: shape {tuple(a.shape)} or non-finite")
-        _same(a, b, f"decode step {i} logits")
-    for name in want["decode"][1]:
-        _same(got["decode"][1][name], want["decode"][1][name], f"decode state {name}")
+    same_as_ref(got, want, n, plen, cfg.vocab)
     if got["generated"] != want["generated"]:
         raise AssertionError(f"engine generation differs: {got['generated']} vs {want['generated']}")
     if [len(g) for g in got["generated"]] != [16] * 4:
@@ -594,7 +609,31 @@ def run_slice(device):
         engine_tokens_per_s=got["engine_tokens"] / got["engine_s"],
         peak_bytes=peak, ref_prefill_ms=want["prefill_ms"], ref_decode_step_ms=want["decode_ms"],
     )
-    return perf, launches
+    # what phase 7 holds its tuned token path against: this run's ref backend
+    ref = dict(cfg=cfg, params=params, tp=tps["ref"], want=want, drive=drive,
+               first_step=(dec_toks[0], np.full((n,), plen)), n=n, plen=plen, s_max=s_max)
+    return perf, launches, ref
+
+
+def same_as_ref(got, want, n, plen, vocab):
+    """A drive of the token path equals the ref backend's, bit for bit:
+    prefill logits and KV rows, every decode step's logits and next tokens,
+    and the final KV cache; logits finite, of the expected shapes."""
+    import torch
+
+    (gl, gc), (wl, wc) = got["prefill"], want["prefill"]
+    if gl.shape != (n, plen, vocab) or not bool(torch.isfinite(gl).all()):
+        raise AssertionError(f"prefill logits: shape {tuple(gl.shape)} or non-finite values")
+    _same(gl, wl, "prefill logits")
+    for name in wc:
+        _same(gc[name], wc[name], f"prefill state {name}")
+    for i, (a, b) in enumerate(zip(got["decode"][0], want["decode"][0])):
+        if a.shape != (n, vocab) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"decode step {i} logits: shape {tuple(a.shape)} or non-finite")
+        _same(a, b, f"decode step {i} logits")
+        _same(a.argmax(-1), b.argmax(-1), f"decode step {i} next tokens")
+    for name in want["decode"][1]:
+        _same(got["decode"][1][name], want["decode"][1][name], f"decode state {name}")
 
 
 def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
@@ -888,6 +927,304 @@ def _perf_line(name, perf, card, max_batch, extra=""):
         log(f"    {ms:9.4f} ms  x{calls:<4g} {key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the measured autotuner, its tile cache and the AOT plan artifact
+# ---------------------------------------------------------------------------
+
+#: The token path's two tuned cells: prefill (4,128) and decode (4,512).
+PREFILL_CELL, DECODE_CELL = {"N": 4, "S": 128}, {"N": 4, "S": 512}
+#: Where phase 7 writes its tile caches (small JSON, brought back) and its
+#: plan artifact (about 2 GB with the vocab-wide embedding and lm_head: kept
+#: in the git-ignored build directory and removed after the phase).
+TUNE_CACHE = os.path.join(OUT_DIR, "autotune_cache.json")
+SLICE_A_CACHE = os.path.join(OUT_DIR, "autotune_slice_a.json")
+ARTIFACT_DIR = os.path.join(ROOT, "build", "chip_smoke_artifact")
+
+
+def cell_sources(cm, cell):
+    """Step name -> tile source (heuristic | tuned | cache) of the newest
+    specialization of ``cell`` in the plan's provenance."""
+    key = tuple(sorted(cell.items()))
+    events = [e for e in cm.plan.provenance.specializations if e.bindings == key]
+    if not events:
+        raise AssertionError(f"cell {cell} was never specialized")
+    return {name: rec.rsplit(" [", 1)[1][:-1] if rec.endswith("]") else "heuristic"
+            for name, rec in events[-1].tiles}
+
+
+def _require_sources(tp, want_source):
+    """Every fused step of both cells carries ``want_source``; returns the
+    number of records checked in each of the two plans."""
+    n = {}
+    for cm, cell in ((tp.prefill_cm, PREFILL_CELL), (tp.decode_cm, DECODE_CELL)):
+        plan, _ = cm.specialized(cell)
+        fused = [s.name for s in plan.steps if s.kind in ("fused_qlinear", "fused_qattention")]
+        src = cell_sources(cm, cell)
+        bad = {k: v for k, v in src.items() if v != want_source}
+        if sorted(src) != sorted(fused) or bad:
+            raise AssertionError(f"cell {cell}: {len(fused)} fused steps, {len(src)} tile records, "
+                                 f"not [{want_source}]: {dict(list(bad.items())[:4])}")
+        n[cm.model.graph.name] = len(src)
+    return n
+
+
+def tuned_groups(cache_path):
+    """The tile cache's entries grouped by (cell, problem shape): how many
+    steps, the heuristic tiling, the winners and the median heuristic and
+    best µs over the group (the cache keys each layer's, each head's step
+    on its own)."""
+    with open(cache_path) as f:
+        entries = json.load(f)["entries"]
+    groups = {}
+    for key, e in entries.items():
+        _, _, cell, shape = key.split("|")
+        g = groups.setdefault((cell, shape), {"steps": 0, "heuristic": set(), "winners": {},
+                                              "heuristic_us": [], "best_us": [], "measured": 0})
+        win = str(e["cluster"]) if "cluster" in e else f"{e['bm']},{e['splits']}"
+        g["steps"] += 1
+        g["heuristic"].add(e["heuristic"])
+        g["winners"][win] = g["winners"].get(win, 0) + 1
+        g["heuristic_us"].append(e["heuristic_us"])
+        g["best_us"].append(e["best_us"])
+        g["measured"] += e["measured"]
+    out = []
+    for (cell, shape), g in sorted(groups.items()):
+        med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+        out.append({"cell": cell, "shape": shape, "steps": g["steps"],
+                    "tiling": "cluster" if ",dh=" in shape else "bm,splits",
+                    "heuristic": sorted(g["heuristic"]), "winners": g["winners"],
+                    "measured": g["measured"], "heuristic_us_median": med(g["heuristic_us"]),
+                    "best_us_median": med(g["best_us"])})
+    return out
+
+
+def artifact_child(path, feeds_path, out_path) -> int:
+    """The fresh process of phase 7 (``chip_smoke.py --load-artifact``): load
+    the saved decode plan with ``warm=True`` under a tracer, run the feeds,
+    write the outputs, print one JSON report line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backend.artifact import load_artifact
+    from repro_torch.obs import trace as _trace
+
+    t0 = time.perf_counter()
+    tracer = _trace.install()
+    try:
+        cm = load_artifact(path, warm=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        with np.load(feeds_path) as f:
+            feeds = {k: torch.from_numpy(f[k]).to(cm.device) for k in f.files}
+        outs = cm.run(feeds)
+        torch.cuda.synchronize()
+    finally:
+        _trace.uninstall()
+    np.savez(out_path, **{k: v.cpu().numpy() for k, v in outs.items()})
+    sources = {}
+    for ev in cm.plan.provenance.specializations:
+        for _, rec in ev.tiles:
+            src = rec.rsplit(" [", 1)[1][:-1] if rec.endswith("]") else "heuristic"
+            sources[src] = sources.get(src, 0) + 1
+    print(json.dumps({
+        "load_s": load_s, "cells": len(cm.plan_cache.keys()), "cache": cm.cache_stats,
+        "fuse_lower_spans": len(tracer.spans("compile.fuse")) + len(tracer.spans("compile.lower")),
+        "sources": sources,
+        "foreign_modules": sorted(m for m in sys.modules
+                                  if m.split(".")[0] in ("jax", "jaxlib", "repro")),
+    }))
+    return 0
+
+
+def run_tuning(device, ref, card):
+    """Phase 7: tune the token path on the card (cold, into a tile cache),
+    warm-start a second one from that cache, save the tuned decode plan and
+    serve it from a fresh process, and tune slice A in the background of
+    its server; everything bit for bit against the ref backend.  Returns
+    the phase's record and its kernels' launches in the token path's two
+    served drives (the tuning's and the slice A server's are in the record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.backend.artifact import save_artifact
+    from repro_torch.backend.autotune import Autotuner
+    from repro_torch.core.compile import compile_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import CompiledModelServer, CompiledServerConfig
+    from repro_torch.serving.token_path import CompiledTokenPath
+
+    cfg, params, n, plen = ref["cfg"], ref["params"], ref["n"], ref["plen"]
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for stale in (TUNE_CACHE, SLICE_A_CACHE):
+        if os.path.exists(stale):
+            os.unlink(stale)  # a cold start
+    log(f"  config: phase 4's ({cfg.n_layers} of 28 layers, widths full); cells "
+        f"prefill {PREFILL_CELL}, decode {DECODE_CELL}")
+
+    # cold: compile with a tuner on an empty cache, then tune both cells
+    t = time.perf_counter()
+    tuner = Autotuner(cache=TUNE_CACHE)
+    tp = CompiledTokenPath(cfg, params, backend="cuda", device=device, autotune=tuner)
+    cold_compile_s = time.perf_counter() - t
+    reset_launch_counts()
+    t = time.perf_counter()
+    for cm, cell in ((tp.prefill_cm, PREFILL_CELL), (tp.decode_cm, DECODE_CELL)):
+        cm.specialized(cell)
+    torch.cuda.synchronize()
+    cold_tune_s = time.perf_counter() - t
+    tuning_launches = launch_counts()
+    missing = [k for k in ("qmatmul", "qmatmul_packed", "qattention") if tuning_launches[k] <= 0]
+    if tuner.measurements <= 0 or missing:
+        raise AssertionError(f"cold tuning: {tuner.measurements} measurements, candidates of "
+                             f"{missing} never launched")
+    records = _require_sources(tp, "tuned")
+    n_records = sum(records.values())
+    reset_launch_counts()
+    same_as_ref(ref["drive"](tp, engine=False), ref["want"], n, plen, cfg.vocab)
+    add(launch_counts())
+    log(f"  cold: compile {cold_compile_s:.1f} s, tuning both cells {cold_tune_s:.1f} s: "
+        f"{tuner.measurements} candidates measured ({tuning_launches['qmatmul']} qmatmul, "
+        f"{tuning_launches['qmatmul_packed']} qmatmul_packed, {tuning_launches['qattention']} "
+        f"qattention launches), {n_records} fused steps [tuned], {len(tuner.cache)} cache "
+        f"entries; prefill, 8 decode steps, next tokens == ref bit for bit  ({card})")
+
+    # warm: a second token path on the same cache file measures nothing
+    t = time.perf_counter()
+    warm_tuner = Autotuner(cache=TUNE_CACHE)
+    warm = CompiledTokenPath(cfg, params, backend="cuda", device=device, autotune=warm_tuner)
+    warm_compile_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for cm, cell in ((warm.prefill_cm, PREFILL_CELL), (warm.decode_cm, DECODE_CELL)):
+        cm.specialized(cell)
+    warm_specialize_s = time.perf_counter() - t
+    if warm_tuner.measurements != 0:
+        raise AssertionError(f"warm start measured {warm_tuner.measurements} candidates, want 0")
+    _require_sources(warm, "cache")
+    reset_launch_counts()
+    same_as_ref(ref["drive"](warm, engine=False), ref["want"], n, plen, cfg.vocab)
+    add(launch_counts())
+    del warm
+    log(f"  warm: compile {warm_compile_s:.1f} s, both cells {warm_specialize_s:.2f} s, 0 "
+        f"measurements, {n_records} fused steps [cache]; outputs == ref bit for bit  ({card})")
+
+    groups = tuned_groups(TUNE_CACHE)
+    for g in groups:
+        log(f"  tuned {g['cell']} {g['shape']} ({g['steps']} steps, {g['tiling']}): heuristic "
+            f"{'/'.join(g['heuristic'])} {g['heuristic_us_median']:.2f} us, winners "
+            f"{g['winners']} {g['best_us_median']:.2f} us (medians over the steps)  ({card})")
+
+    # the artifact: save the tuned decode plan, serve it from a fresh process
+    os.makedirs(ARTIFACT_DIR, exist_ok=True)
+    path = os.path.join(ARTIFACT_DIR, "decode.json")
+    feeds_path = os.path.join(ARTIFACT_DIR, "feeds.npz")
+    out_path = os.path.join(ARTIFACT_DIR, "outs.npz")
+    try:
+        t = time.perf_counter()
+        save_artifact(tp.decode_cm, path)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path) + os.path.getsize(path[:-5] + ".npz")
+        cache = ref["tp"].init_cache(n, ref["s_max"])
+        for name, rows in ref["want"]["prefill"][1].items():
+            cache[name][:, :plen] = rows
+        feeds = ref["tp"].decode_feeds(*ref["first_step"], cache)
+        np.savez(feeds_path, **{k: v.cpu().numpy() for k, v in feeds.items()})
+        want = ref["tp"].decode_cm.run(feeds)
+        del tp
+        t = time.perf_counter()
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--load-artifact", path,
+                                feeds_path, out_path], capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t
+        if child.returncode != 0:
+            raise AssertionError(f"the artifact process failed ({child.returncode}):\n"
+                                 f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+        report = json.loads(child.stdout.strip().splitlines()[-1])
+        if report["fuse_lower_spans"] or report["cache"]["misses"] or report["foreign_modules"]:
+            raise AssertionError(f"the artifact process re-lowered, re-specialized or loaded "
+                                 f"jax/repro: {report}")
+        want_sources = {"tuned": records[ref["tp"].decode_model.graph.name]}
+        if report["sources"] != want_sources:
+            raise AssertionError(f"the loaded decode cell's tile sources {report['sources']}, "
+                                 f"want {want_sources}")
+        with np.load(out_path) as got:
+            if sorted(got.files) != sorted(want):
+                raise AssertionError(f"the artifact process returned {sorted(got.files)}")
+            for k, v in want.items():
+                _same(torch.from_numpy(got[k]), v.cpu(), f"loaded decode plan output {k}")
+        t = time.perf_counter()
+        diff = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "plan_diff.py"), path,
+                               path], capture_output=True, text=True, timeout=900)
+        diff_s = time.perf_counter() - t
+        if diff.returncode != 0 or "structurally identical" not in diff.stdout:
+            raise AssertionError(f"plan_diff of the artifact against itself: rc {diff.returncode}\n"
+                                 f"{diff.stdout[-2000:]}{diff.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
+    log(f"  artifact: save {save_s:.1f} s ({size / 2**30:.2f} GiB with its sidecar); a fresh "
+        f"process loaded it with warm=True in {report['load_s']:.1f} s ({child_s:.1f} s with "
+        f"start-up and the run): 0 fuse/lower spans, cache {report['cache']['hits']} hit / "
+        f"{report['cache']['misses']} misses, sources {report['sources']}, no jax/repro module; "
+        f"decode logits and KV == ref bit for bit; plan_diff self-diff identical "
+        f"({diff_s:.1f} s)  ({card})")
+
+    # slice A served with a background tuner: swaps, then bit for bit
+    model, examples = build_mlp()
+    cm = compile_model(model, backend="cuda", device=device, batch="dynamic")
+    ref_cm = compile_model(model, backend="ref", device=device, batch="dynamic")
+    srv_tuner = Autotuner(cache=SLICE_A_CACHE)
+    srv = CompiledModelServer(cm, CompiledServerConfig(max_batch=MLP_MAX_BATCH),
+                              autotuner=srv_tuner)
+    reset_launch_counts()
+    t = time.perf_counter()
+    got = []
+    for _ in range(2):  # round 1 tunes in the background, round 2 runs the swapped plans
+        it = iter(examples)
+        for w in MLP_WAVES:
+            got += [srv.submit(next(it)) for _ in range(w)]
+            srv.run_until_drained()
+        while srv.tuning_pending:
+            srv.step()  # idle cycles spend the tuning budget
+    serve_s = time.perf_counter() - t
+    server_launches = launch_counts()
+    want_a, _, _, _ = _serve(ref_cm, examples, MLP_WAVES, MLP_MAX_BATCH)
+    summ = srv.summary()
+    if summ["tuned_swaps"] < 1 or srv.tuning_pending != 0:
+        raise AssertionError(f"slice A server: {summ['tuned_swaps']} tuned swaps, "
+                             f"{srv.tuning_pending} candidates pending")
+    out = cm.output_names[0]
+    for i, r in enumerate(got):
+        w = want_a[i % len(examples)].outputs[out]
+        if not np.array_equal(r.outputs[out], w) or r.outputs[out].dtype != w.dtype:
+            raise AssertionError(f"slice A tuned request {i}: backends cuda and ref disagree")
+    log(f"  slice A server: {len(got)} requests in {summ['batches']} batches ({serve_s:.2f} s), "
+        f"{srv_tuner.measurements} candidates measured between batches, {summ['tuned_swaps']} "
+        f"tuned swaps, 0 pending; responses == ref bit for bit  ({card})")
+    groups_a = tuned_groups(SLICE_A_CACHE)
+    for g in groups_a:
+        log(f"  tuned slice A {g['cell']} {g['shape']}: heuristic {'/'.join(g['heuristic'])} "
+            f"{g['heuristic_us_median']:.2f} us, winners {g['winners']} "
+            f"{g['best_us_median']:.2f} us  ({card})")
+    log(f"  wall: cold tuning {cold_compile_s + cold_tune_s:.1f} s (compile {cold_compile_s:.1f} + "
+        f"tune {cold_tune_s:.1f}), warm start {warm_compile_s + warm_specialize_s:.1f} s, save "
+        f"{save_s:.1f} s, load in a fresh process {report['load_s']:.1f} s  ({card})")
+    record = dict(
+        measurements=tuner.measurements, records=records, cold_compile_s=cold_compile_s,
+        cold_tune_s=cold_tune_s, warm_compile_s=warm_compile_s,
+        warm_specialize_s=warm_specialize_s, save_s=save_s, artifact_bytes=size,
+        child_s=child_s, child=report, plan_diff_s=diff_s, tuning_launches=tuning_launches,
+        groups=groups, slice_a=dict(measurements=srv_tuner.measurements,
+                                    tuned_swaps=summ["tuned_swaps"], requests=len(got),
+                                    serve_s=serve_s, groups=groups_a,
+                                    launches=server_launches),
+    )
+    return record, launches
+
+
 def lut_row(rows, worst, launches):
     """The kernels-line row of qact_lut, which runs by two routes: on the
     main path as the table in the qmatmul epilogue (slice A's Tanh layer
@@ -949,24 +1286,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/7] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/8] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/7] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/8] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/7] kernels against their plain versions (tolerance 0)")
+    log("[3/8] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/7] token path: compiled token path, backend cuda vs backend ref  ({card})")
-    perf, launches_tok = run_slice(device)
+    log(f"[4/8] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
         f"{perf['engine_tokens_per_s']:.1f} tokens/s; peak allocated "
@@ -988,7 +1325,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/7] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/8] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -1001,7 +1338,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/7] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/8] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -1014,8 +1351,16 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
+    log(f"[7/8] autotune: the token path tuned on the card (cold, then warm from the tile "
+        f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
+        f"server's background; every output against the ref backend  ({card})")
+    tuning, launches_tune = run_tuning(device, ref, card)
+    log(f"  launches in phase 7's two served token-path drives: {launches_tune}; "
+        f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
+        f"candidates measured between batches included: {tuning['slice_a']['launches']}")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
-                for k in launches_tok}
+                + launches_tune.get(k, 0) for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
     # at the decode shapes (qattention: one launch per head)
@@ -1050,7 +1395,8 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[7/7] summary: launches are summed over the counted runs of phases 4-6; "
+    log("[8/8] summary: launches are summed over the served runs of phases 4-7 (phase 7: "
+        "the tuned and the warm-started token path's drives, no tuning candidate); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
@@ -1065,8 +1411,9 @@ def main() -> int:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "n_layers": N_LAYERS, "rows": rows, "qmatmul_instances": instances,
                    "slice": perf, "slice_a": perf_a,
-                   "slice_b": perf_b, "launches": {"token_path": launches_tok, "slice_a": launches_a,
-                                                   "slice_b": launches_b},
+                   "slice_b": perf_b, "autotune": tuning,
+                   "launches": {"token_path": launches_tok, "slice_a": launches_a,
+                                "slice_b": launches_b, "autotune": launches_tune},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1076,4 +1423,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--load-artifact"]:
+        sys.exit(artifact_child(*sys.argv[2:5]))
     sys.exit(main())

@@ -13,9 +13,22 @@ the kernels, on torch devices.
 
 The plan format, liveness planning, named-axis templates, per-bucket
 specialization and the shared :class:`PlanCache` are those of ``repro``'s
-backend; only the kernels and the tensors differ.
+backend; only the kernels and the tensors differ.  So are the measured
+per-cell tile search (:mod:`.autotune`, ranked by the H100 cost model in
+:mod:`.cost`) and the AOT plan artifacts (:mod:`.artifact`).
 """
-from . import fused, generic  # noqa: F401  (populate the registry on import)
+from . import cost, fused, generic  # noqa: F401  (populate the registry on import)
+from .autotune import (  # noqa: F401
+    Autotuner,
+    AutotuneCache,
+    TuneJob,
+    attention_candidates,
+    measure_device_median,
+    measure_median,
+    seed_attention_candidates,
+    seed_candidates,
+    tile_candidates,
+)
 from .lowering import (  # noqa: F401
     StepDraft,
     build_plan,
@@ -36,3 +49,6 @@ from .plan import (  # noqa: F401
     resolve_bucketing,
 )
 from .registry import UnknownKernelError, backends_for, kernel_ids, lookup, register  # noqa: F401
+
+# last: artifact lazily imports repro_torch.core.compile, which imports this package
+from .artifact import ARTIFACT_SCHEMA, load_artifact, save_artifact, sidecar_path  # noqa: F401,E402

@@ -199,6 +199,8 @@ def build_plan(
 def specialize_plan(
     template: ExecutionPlan,
     bindings: Union[int, Dict[str, int]],
+    *,
+    tuner: Optional[Any] = None,
 ) -> ExecutionPlan:
     """Bind a scenario-polymorphic plan template to concrete axis buckets.
 
@@ -221,6 +223,15 @@ def specialize_plan(
     case, ``specialize_plan(plan, {})`` on a fully-static plan is a no-op
     (there is nothing to bind); a non-empty bindings dict on a static plan
     is still an error.
+
+    ``tuner`` (a :class:`repro_torch.backend.autotune.Autotuner`, or
+    anything with its ``tune_step`` contract) routes each fully-bound fused
+    step's tiling through the measured per-cell search: the heuristic shape
+    record goes in, a possibly re-tiled record and a source tag
+    (``heuristic | tuned | cache``) come out.  The provenance tile record
+    carries the tag for non-heuristic sources (``... [tuned]``), so
+    ``plan.pretty(verbose=True)`` shows where every cell's tiles came from;
+    heuristic cells render exactly as without a tuner.
     """
     if isinstance(bindings, dict):
         bindings = {str(a): int(v) for a, v in bindings.items()}
@@ -262,10 +273,18 @@ def specialize_plan(
                 else:
                     params = {k: v for k, v in params.items() if k != "dynamic_attn"}
                     shape = kops.bind_qattention_axes(step.params["shape"], bindings)
+                    source = "heuristic"
+                    if tuner is not None:
+                        shape, source = tuner.tune_step(
+                            step, shape, backend=template.backend, bindings=bindings
+                        )
                     params["shape"] = shape
-                    tiles[step.name or step.kernel] = ",".join(
+                    rec = ",".join(
                         f"{k}={shape[k]}" for k in ("b", "s", "t", "dh", "cluster")
                     )
+                    if source != "heuristic":
+                        rec += f" [{source}]"
+                    tiles[step.name or step.kernel] = rec
             elif params.get("dynamic_batch"):
                 # qlinear_matmul and qlinear_conv2d (im2col onto qmatmul):
                 # the same record, the same binder, the template's tensors
@@ -277,6 +296,11 @@ def specialize_plan(
                 else:
                     params = {k: v for k, v in params.items() if k != "dynamic_batch"}
                     shape = kops.bind_qmatmul_axes(step.params["shape"], bindings)
+                    source = "heuristic"
+                    if tuner is not None:
+                        shape, source = tuner.tune_step(
+                            step, shape, backend=template.backend, bindings=bindings
+                        )
                     params["shape"] = shape
                     rec = ",".join(
                         f"{k}={shape[k]}" for k in ("m", "bm", "bk", "bn", "splits")
@@ -286,6 +310,8 @@ def specialize_plan(
                         # sub-8-bit weight lane: a hardware designer reads the
                         # precision off the cell record (activations stay int8)
                         rec += f",w{shape['bits']}/a8"
+                    if source != "heuristic":
+                        rec += f" [{source}]"
                     tiles[step.name or step.kernel] = rec
             out_info = tuple(
                 ValueInfo(info.dtype, bind(info.shape, bindings)) if info is not None else info

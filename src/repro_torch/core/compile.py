@@ -686,11 +686,10 @@ class Compiler:
         plan_cache: Optional[PlanCache] = None,
         autotune=None,
     ) -> None:
-        if autotune is not None:
-            raise NotImplementedError("autotune= is not ported yet: leave it None")
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.device = resolve_device(device)
+        self.autotuner = _resolve_autotuner(autotune)
         model.validate()
         if batch not in ("static", "dynamic"):
             raise ValueError(f"batch must be 'static' or 'dynamic', got {batch!r}")
@@ -739,8 +738,14 @@ class Compiler:
             self.dynamic_axes = {
                 a: resolve_bucketing(dynamic_axes.get(a)) for a in available if a in dynamic_axes
             }
+            # raw (pre-resolution) bucketing specs: what an AOT artifact
+            # serializes, since the resolved policies are callables
+            self.axis_specs = {
+                a: dynamic_axes.get(a) for a in available if a in dynamic_axes
+            }
         else:
             self.dynamic_axes = {}
+            self.axis_specs = {}
         self.plan_cache_capacity = plan_cache_capacity
         self.plan_cache = plan_cache
         self.inits = {k: v for k, v in self.graph.initializers.items()}
@@ -824,6 +829,8 @@ class Compiler:
             plan_cache_capacity=self.plan_cache_capacity,
             plan_cache=self.plan_cache,
             dynamic_axes=self.dynamic_axes,
+            axis_specs=self.axis_specs,
+            autotuner=self.autotuner,
             device=self.device,
         )
 
@@ -974,11 +981,26 @@ class CompiledModel:
         plan_cache_capacity: int = PlanCache.DEFAULT_CAPACITY,
         plan_cache: Optional[PlanCache] = None,
         dynamic_axes: Optional[Dict[str, object]] = None,
+        axis_specs: Optional[Dict[str, object]] = None,
+        autotuner=None,
         device=None,
     ) -> None:
         self.model = model
         self.plan = plan
         self.device = resolve_device(device)
+        self.plan_cache_capacity = plan_cache_capacity
+        #: per-axis raw bucketing specs (None / int / callable) as declared at
+        #: compile time — the serializable counterpart of ``dynamic_axes``,
+        #: whose values are already-resolved policy callables
+        if plan.batch == "dynamic":
+            self.axis_specs: Dict[str, object] = (
+                dict(axis_specs) if axis_specs is not None else {a: None for a in plan.axes}
+            )
+        else:
+            self.axis_specs = {}
+        #: optional repro_torch.backend.autotune.Autotuner — when set, every
+        #: lazy specialization routes its tiling through the measured search
+        self.autotuner = autotuner
         self.steps = plan.steps
         self.stats = stats
         self.pass_report = pass_report if pass_report is not None else PipelineReport()
@@ -1110,7 +1132,7 @@ class CompiledModel:
         key = self.cache_key(bindings)
         entry = self.plan_cache.get(key)
         if entry is None:
-            plan = specialize_plan(self.plan, bindings)
+            plan = specialize_plan(self.plan, bindings, tuner=self.autotuner)
             entry = (plan, plan.execute)
             self.plan_cache.put(key, entry)
         return entry
@@ -1184,6 +1206,23 @@ class CompiledModel:
             return out
 
 
+def _resolve_autotuner(autotune):
+    """Normalize the ``compile_model(autotune=...)`` sugar to an Autotuner
+    (or None): True → in-memory session, a path → persistent tile cache,
+    a tuner instance → as-is.  Tuners are duck-typed on the ``tune_step``
+    contract (not ``isinstance``) so injected test doubles — and the module
+    run under ``python -m``, where the class exists twice — both work."""
+    if not autotune:
+        return None
+    from ..backend.autotune import Autotuner
+
+    if autotune is True:
+        return Autotuner()
+    if hasattr(autotune, "tune_step"):
+        return autotune
+    return Autotuner(cache=str(autotune))
+
+
 def compile_model(
     model: Model,
     *,
@@ -1234,7 +1273,19 @@ def compile_model(
                    prefixed with the graph name (``cm.cache_key``), so pooled
                    artifacts never collide; capacity/accounting are the
                    shared cache's.
-    autotune:      not ported yet: anything but None raises.
+    autotune:      measured per-cell tile search (dynamic mode, ``cuda``
+                   backend): ``True`` → an in-memory
+                   :class:`repro_torch.backend.autotune.Autotuner` session,
+                   a path → a session persisted to that JSON tile cache
+                   (warm starts perform zero measurements), an Autotuner
+                   instance → shared/injected (tests pass one with a
+                   deterministic ``measure_fn``).  Each lazy specialization
+                   then measures a budgeted, cost-model-seeded candidate
+                   list of qmatmul ``(bm, splits)`` and qattention cluster
+                   sizes on the card, and the plan provenance tags every
+                   cell's tile source.  A CPU plan has no kernel to time:
+                   its real measurement raises unless ``measure_fn`` is
+                   injected.
     """
     with _trace.span(
         "compile", graph=model.graph.name, backend=backend,

@@ -45,17 +45,21 @@ requests; a flat ``metrics`` dict), specialized to single-shot inference:
   ``serve.compute`` (the bucketed model execution) children plus
   per-request queue-wait accounting.
 
-The port of ``repro``'s server differs in three ways:
+The port of ``repro``'s server differs in two ways:
 
 * execution is eager — ``repro`` jits each cell's ``plan.execute``; here
   ``CompiledModel.run`` calls the bound plan directly;
 * a batch's outputs cross to the host **once per batch**, one ``.cpu()``
   per output, and each request's outputs are numpy views of that copy (as
   ``repro``'s are of its batch array).  This is deliberate: one copy per
-  request would cost one device synchronisation per request;
-* background autotuning (``repro``'s ``TuneJob``) is not ported yet: an
-  ``autotuner=``, or a compiled model that carries one, raises.  The
-  ``tuned_swaps`` / ``tuning_pending`` keys stay in the metrics, at 0.
+  request would cost one device synchronisation per request.
+
+Background autotuning is ``repro``'s: with an ``autotuner=`` (or a compiled
+model that carries one) every newly served cell enqueues one
+:class:`~repro_torch.backend.autotune.TuneJob`; each ``step()`` measures at
+most ``tune_candidates_per_step`` tile candidates after its batch is out,
+and a finished job swaps its tuned plan into the ``PlanCache`` with one
+``put`` (``tuned_swaps``).
 """
 from __future__ import annotations
 
@@ -66,6 +70,9 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..backend.autotune import TuneJob
+from ..backend.lowering import specialize_plan
+from ..backend.plan import bindings_key
 from ..core.compile import BATCH_AXIS, CompiledModel
 from ..obs import trace as _trace
 from ..obs.metrics import MetricsRegistry
@@ -109,12 +116,20 @@ class CompiledServerConfig:
     # admission window: hold a partial batch until the oldest queued request
     # is this old (ms), then launch it (None = greedy drain)
     max_wait_ms: Optional[float] = None
+    # background autotuning: at most this many tile candidates measured per
+    # step() after its batch is served — the bound that keeps the search from
+    # ever stretching a serving cycle unboundedly
+    tune_candidates_per_step: int = 2
 
     def __post_init__(self) -> None:
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         if self.max_wait_ms is not None and self.max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {self.max_wait_ms}")
+        if self.tune_candidates_per_step < 1:
+            raise ValueError(
+                f"tune_candidates_per_step must be >= 1, got {self.tune_candidates_per_step}"
+            )
 
 
 class CompiledModelServer:
@@ -130,10 +145,6 @@ class CompiledModelServer:
         name: str = "",
         uid_start: int = 0,
     ) -> None:
-        if autotuner is not None or getattr(cm, "autotuner", None) is not None:
-            raise NotImplementedError(
-                "background autotuning is not ported yet (ROADMAP A8): pass no autotuner"
-            )
         if not cm.is_dynamic:
             raise ValueError(
                 "CompiledModelServer needs a scenario-polymorphic artifact — "
@@ -221,10 +232,29 @@ class CompiledModelServer:
             "padded_rows": 0,  # bucket rows minus real rows, summed
             "padded_tokens": 0,  # seq-bucket slots minus real seq steps, summed
             "window_hits": 0,  # partial batches launched by the admission window
-            "tuned_swaps": 0,  # cells whose tuned executor swapped in (no tuner yet: 0)
+            "tuned_swaps": 0,  # cells whose tuned executor swapped in
             "bucket_batches": {},  # batch bucket -> number of coalesced batches
             "grid_batches": {},  # (batch bucket, seq bucket) -> batches (2-D grids)
         }
+        # non-blocking autotuning: every served cell enqueues one TuneJob;
+        # step() spends a bounded candidate budget on the front job after its
+        # batch is out the door, and swaps the tuned executor into the
+        # PlanCache atomically when the job finishes — requests are always
+        # served on whatever the cache currently holds, never waiting on the
+        # search
+        self.autotuner = autotuner if autotuner is not None else getattr(cm, "autotuner", None)
+        if self.autotuner is not None and not hasattr(self.autotuner, "tune_step"):
+            raise TypeError(
+                f"autotuner must be an Autotuner, got {type(self.autotuner).__name__} "
+                "(it has no tune_step)"
+            )
+        if self.autotuner is not None:
+            # the server owns the search: detach the tuner from the model so
+            # a first-touch specialization inside step() can never block on a
+            # measured search — cells go live on heuristic tiles immediately
+            cm.autotuner = None
+        self._tune_jobs: Deque[TuneJob] = deque()
+        self._tuned_cells: set = set()
 
     def _count(self, key: str, n: int = 1) -> None:
         """One accounting site: the flat alias dict and the canonical
@@ -308,8 +338,13 @@ class CompiledModelServer:
         """One server cycle: coalesce up to ``max_batch`` queued requests into
         a single bucketed model execution.  Returns the completed requests —
         possibly none, when the admission window is still holding a partial
-        batch open for more arrivals."""
+        batch open for more arrivals.
+
+        Idle cycles (empty queue, or a partial batch held by the admission
+        window) still spend the bounded background-tuning budget — an idle
+        server converges on tuned tiles fastest."""
         if not self.queue:
+            self._advance_tuning()
             return []
         if (
             self.cfg.max_wait_ms is not None
@@ -317,6 +352,7 @@ class CompiledModelServer:
         ):
             age_ms = (time.monotonic() - self.queue[0].t_submit) * 1e3
             if age_ms < self.cfg.max_wait_ms:
+                self._advance_tuning()
                 return []  # hold the partial batch open for more arrivals
             self._count("window_hits")
         n = min(len(self.queue), self.cfg.max_batch)
@@ -377,6 +413,7 @@ class CompiledModelServer:
             for r in reqs:
                 self._queue_wait.observe((t_deq - r.t_submit) * 1e3)
             bucket = self.cm.bucket_for(BATCH_AXIS, n)
+            cell_bindings = {BATCH_AXIS: bucket}
             self._count("batches")
             self._count("padded_rows", bucket - n)
             hist = self.metrics["bucket_batches"]
@@ -384,6 +421,7 @@ class CompiledModelServer:
             self.registry.counter(f"serve.batches.bucket.{bucket}").inc()
             if seq_lens is not None:
                 s_bucket = self.cm.bucket_for(self.seq_axis, max(seq_lens))
+                cell_bindings[self.seq_axis] = s_bucket
                 self._count("padded_tokens", sum(s_bucket - s for s in seq_lens))
                 grid = self.metrics["grid_batches"]
                 cell = (bucket, s_bucket)
@@ -410,13 +448,47 @@ class CompiledModelServer:
                 if _trace.enabled:
                     _trace.async_end("serve.request", req.uid)
             self._count("completed", n)
+        # the batch is out the door: spend the bounded tuning budget only now
+        self._note_cell(cell_bindings)
+        self._advance_tuning()
         return reqs
+
+    # -- background autotuning ------------------------------------------------
+    def _note_cell(self, bindings: Dict[str, int]) -> None:
+        """First sighting of a scenario cell enqueues its measured search."""
+        if self.autotuner is None:
+            return
+        key = bindings_key(bindings)
+        if key in self._tuned_cells:
+            return
+        self._tuned_cells.add(key)
+        self._tune_jobs.append(TuneJob(self.autotuner, self.cm.plan, bindings))
+
+    def _advance_tuning(self) -> None:
+        """Measure at most ``tune_candidates_per_step`` candidates of the
+        front job; when a job finishes, swap its tuned executor into the
+        PlanCache.  The swap is a single ``put`` — in-flight callers keep the
+        heuristic entry they already hold, the next ``step()`` on the cell
+        picks up the tuned one."""
+        if self.autotuner is None or not self._tune_jobs:
+            return
+        job = self._tune_jobs[0]
+        if job.advance(self.cfg.tune_candidates_per_step):
+            self._tune_jobs.popleft()
+            # every step of the cell is now resolved in the tuner's session,
+            # so this specialization measures nothing — it just stamps the
+            # tuned tiles (and their provenance source tags) into a new plan
+            plan = specialize_plan(self.cm.plan, job.bindings, tuner=self.autotuner)
+            # cache_key: graph-qualified when the cache is fleet-shared, the
+            # plain bindings key otherwise — must match what step() looks up
+            self.cm.plan_cache.put(self.cm.cache_key(job.bindings), (plan, plan.execute))
+            self._count("tuned_swaps")
+            self.registry.counter("autotune.swaps").inc()
 
     @property
     def tuning_pending(self) -> int:
-        """Tile candidates still to measure: always 0 until the autotuner
-        is ported."""
-        return 0
+        """Candidates still to measure across all queued tune jobs."""
+        return sum(j.remaining for j in self._tune_jobs)
 
     def _request_view(
         self, v: np.ndarray, axes: Dict[str, int], i: int, seq_len: Optional[int]

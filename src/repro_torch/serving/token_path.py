@@ -29,7 +29,7 @@ import torch
 
 from ..backend.plan import PlanCache
 from ..core import pqir
-from ..core.compile import CompiledModel, compile_model, resolve_device
+from ..core.compile import CompiledModel, _resolve_autotuner, compile_model, resolve_device
 from ..core.patterns import ATTN_P_SCALE, emit_qattention, emit_round_clip, fc_layer
 from ..core.quant import QuantizedLinearParams, Rescale, RescaleVector, quantize_linear_layer
 
@@ -321,7 +321,11 @@ class CompiledTokenPath:
 
     Keys in the shared cache are graph-qualified, so the pair holds exactly
     one specialization per visited (graph, batch-bucket, seq-bucket) cell —
-    ``cache_stats()`` makes that observable."""
+    ``cache_stats()`` makes that observable.
+
+    ``autotune`` is ``compile_model``'s (True, a tile-cache path, or an
+    Autotuner), resolved once here, so both plans share one tuner session
+    (:attr:`autotuner`)."""
 
     def __init__(
         self,
@@ -333,8 +337,10 @@ class CompiledTokenPath:
         seed: int = 0,
         s_granularity: int = 32,
         plan_cache_capacity: int = 32,
+        autotune=None,
     ) -> None:
         self.device = resolve_device(device)
+        self.autotuner = _resolve_autotuner(autotune)
         self.cfg = cfg if cfg is not None else TokenPathConfig()
         self.params = params if params is not None else make_token_params(self.cfg, seed)
         self.plan_cache = PlanCache(plan_cache_capacity, scope="plan")
@@ -346,6 +352,7 @@ class CompiledTokenPath:
             batch="dynamic",
             dynamic_axes={"N": None, "S": s_granularity},
             plan_cache=self.plan_cache,
+            autotune=self.autotuner,
         )
         self.prefill_cm: CompiledModel = compile_model(self.prefill_model, **kw)
         self.decode_cm: CompiledModel = compile_model(self.decode_model, **kw)
@@ -383,22 +390,31 @@ class CompiledTokenPath:
         accounting matches :meth:`decode`); otherwise the step goes through
         :meth:`decode`, which pads and slices.  Returns (logits (N, V) on the
         device, next cache dict)."""
-        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32, device=self.device)
-        pos_t = torch.as_tensor(np.asarray(pos), dtype=torch.int64, device=self.device)
-        n = int(toks.shape[0])
-        s = int(next(iter(cache.values())).shape[1])
-        ar = torch.arange(s, device=self.device)
-        onehot = (ar[None, :, None] == pos_t[:, None, None]).to(torch.int8)
-        mask = (ar[None, None, :] <= pos_t[:, None, None]).to(torch.float32)
+        feeds = self.decode_feeds(tokens, pos, cache)
+        n, s = feeds["onehot"].shape[:2]
         cm = self.decode_cm
         if cm.bucket_for("N", n) != n or cm.bucket_for("S", s) != s:
-            logits, nxt = self.decode(toks, onehot, mask, cache)
+            logits, nxt = self.decode(feeds["tokens"], feeds["onehot"], feeds["mask"], cache)
             return logits[:, 0, :], nxt
         _, execute = cm.specialized({"N": n, "S": s})
-        feeds = {"tokens": toks, "onehot": onehot, "mask": mask}
-        feeds.update(cache)
         outs = execute(feeds)
         return outs[self._logits_decode][:, 0, :], {sp.input: outs[sp.output] for sp in self.state_specs}
+
+    def decode_feeds(self, tokens, pos, cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The decode plan's feeds for one step, on the device: the tokens,
+        the position onehot and causal mask built from ``pos``, and the
+        cache."""
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32, device=self.device)
+        pos_t = torch.as_tensor(np.asarray(pos), dtype=torch.int64, device=self.device)
+        s = int(next(iter(cache.values())).shape[1])
+        ar = torch.arange(s, device=self.device)
+        feeds = {
+            "tokens": toks,
+            "onehot": (ar[None, :, None] == pos_t[:, None, None]).to(torch.int8),
+            "mask": (ar[None, None, :] <= pos_t[:, None, None]).to(torch.float32),
+        }
+        feeds.update(cache)
+        return feeds
 
     def init_cache(self, n: int, s: int) -> Dict[str, torch.Tensor]:
         D = self.cfg.d_model

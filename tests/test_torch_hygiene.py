@@ -5,7 +5,9 @@
   module of the port, and by an AST scan of every port source, of
   ``chip_smoke.py`` and of the A/B timing scripts;
 * the entry points run on the CUDA card unless the caller asks for the CPU,
-  and raise — never fall back — when no card is present.
+  and raise — never fall back — when no card is present;
+* the numpy-only modules the port copies from ``repro`` stay byte-for-byte
+  copies, so a port-side edit to one fails here.
 
 No numerics here, so no tolerance.
 """
@@ -66,7 +68,8 @@ def test_source_imports_nothing_of_jax_or_repro(path):
 
 
 SLICE_MODULES = ["core/calibrate.py", "core/toolchain.py", "core/export.py",
-                 "kernels/qact_lut.py", "kernels/ops.py", "serving/compiled.py"]
+                 "kernels/qact_lut.py", "kernels/ops.py", "serving/compiled.py",
+                 "backend/cost.py", "backend/autotune.py", "backend/artifact.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -76,6 +79,27 @@ def test_compiled_model_slice_modules_are_scanned(rel):
     path = PORT / rel
     assert path in SOURCES
     test_source_imports_nothing_of_jax_or_repro(path)
+
+
+#: The port's byte-for-byte copies of ``repro``'s numpy-only modules.
+COPIES = sorted(
+    [str(p.relative_to(PORT)) for d in ("obs", "passes") for p in (PORT / d).glob("*.py")]
+    + [f"core/{m}.py" for m in ("pqir", "quant", "patterns", "runtime", "cache", "calibrate",
+                                "toolchain", "export")]
+    + ["kernels/pack.py"]
+)
+
+
+def test_the_copies_are_all_listed():
+    assert len(COPIES) == 19
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_is_identical_to_its_repro_original(rel):
+    original = ROOT / "src" / "repro" / rel
+    assert (PORT / rel).read_bytes() == original.read_bytes(), (
+        f"src/repro_torch/{rel} is no longer a byte-for-byte copy of src/repro/{rel}"
+    )
 
 
 def _tiny_model():
@@ -105,8 +129,6 @@ def test_cpu_on_request_and_results_stay_on_the_device():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="autotune"):
-        compile_model(_tiny_model(), device="cpu", autotune=True)
     with pytest.raises(ValueError, match="backend"):
         compile_model(_tiny_model(), device="cpu", backend="pallas")
     with pytest.raises(ValueError, match="adapter"):

@@ -8,7 +8,8 @@ port backends, fed the same requests in the same waves.  Every request's
 outputs must be equal, and so must the coalescing: ``batches``,
 ``padded_rows``, ``bucket_batches`` and, on the (batch × seq) grid,
 ``grid_batches`` and ``padded_tokens``.  Also: a failed batch re-queues in
-order, and an ``autotuner=`` raises (not ported yet).
+order, and an ``autotuner=`` that is not a tuner raises (the background
+search itself is in ``tests/test_torch_autotune.py``).
 
 Tolerance: 0.  Every path is integer arithmetic or an IEEE-exact float32
 elementwise step in the codified order, so the results are bit-identical.
@@ -155,10 +156,10 @@ def test_submit_validation_and_admission_window():
 def test_autotuner_raises():
     model, _ = _paper_mlp()
     cm = compile_model(_port(model), backend="ref", device="cpu", batch="dynamic")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(TypeError, match="tune_step"):
         CompiledModelServer(cm, autotuner=object())
     cm.autotuner = object()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(TypeError, match="tune_step"):
         CompiledModelServer(cm)
 
 
