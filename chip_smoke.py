@@ -27,9 +27,9 @@ Drives the port's main path on one CUDA card and fails loudly:
    d_model 2048, 16 heads of 128, d_ff 6144; depth cut to ``N_LAYERS``),
    built twice from one seed — backend ``cuda`` and backend ``ref`` — and
    held identical through prefill, decode steps and ServeEngine generation;
-   then one decode step traced with ``torch.profiler`` (device time by
-   kernel, the card's idle share), which fails if any per-head q/k/v view
-   was copied;
+   then one decode step traced with ``torch.profiler`` after a discarded,
+   profiled warm-up step (device time by kernel, the card's idle share),
+   which fails if any per-head q/k/v view was copied;
 5. slice A — the paper's Tanh/Sigmoid MLP (§4/§6; fp16 tanh flow) at the
    feed-forward widths 2048 → 6144 → 6144 → 2048, served by
    ``CompiledModelServer`` on both backends, responses identical and equal
@@ -53,14 +53,30 @@ Drives the port's main path on one CUDA card and fails loudly:
    Slice A is served with a background tuner (``tuned_swaps`` >= 1,
    nothing pending, responses equal to ``ref``).  Log lines give heuristic
    vs winning tiles per tuned step shape and the phase's wall times;
-8. summary — one JSON line of the kernels with their launch counts summed
-   over the served runs of phases 4–7, then the card line, then the
+8. fleet and checkpoints — (a) a two-axis per-token FFN at the widths of
+   ``src/repro/configs/qwen3_1_7b.py`` (x int8 (N, S, 2048) → FC 6144 +
+   ReLU, w8 → FC 2048, w4; per-channel, seed 0) compiled on ``cuda``, its
+   hot cells (batch 8 × seq buckets 64/128/192) recorded by a server and
+   saved as an AOT artifact, then served by three replicas warm-started
+   from it (``ShardedRouter.from_artifact``) for at least MIN_WINDOW_S:
+   each cell on its own replica, no plan-cache miss, nothing lost or
+   served twice, every response equal to its solo run on the ``ref``
+   backend and a sample equal to ``ReferenceRuntime``; (b) a further wave
+   with one replica raising: one failover, its queue migrated in order,
+   its cell re-pointed, responses still equal; (c) phase 4's ``cuda``
+   decode checkpointed by ``CheckpointManager`` under ``run_resilient``
+   through a crash, equal to an uninterrupted run bit for bit, and a
+   CPU-written checkpoint restored onto the card; (d) the generic
+   MaxPool / AveragePool ops on the card against ``ReferenceRuntime``;
+9. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–8, then the card line, then the
    ``{"ok": true, ...}`` line.
 
-Each of phases 4–7 zeroes the launch counters just before each counted run
+Each of phases 4–8 zeroes the launch counters just before each counted run
 and reads them just after; a kernel of that path launched no time fails.
 Phase 7's served runs are the tuned and the warm-started token path's
-drives; the launches of the tuner's candidates (timed on synthetic inputs,
+drives; phase 8's, the fleet's rounds, its failover wave and the resilient
+decode; the launches of the tuner's candidates (timed on synthetic inputs,
 also between the slice A server's batches) are read on their own and kept
 in ``chiprun_out/chip_smoke.json`` only.
 
@@ -167,6 +183,12 @@ ATTN_SHAPES = [(1, 512), (1, 77), (128, 128), (77, 96)]  # (S, T) at B=4, dh=128
 ATTN_VIEW_SHAPES = [(1, 512), (1, 77), (128, 128)]
 ATTN_D, ATTN_HEAD = 2048, 5
 DECODE_M = 4  # rows of a decode step at 4 slots
+#: Phase 8's fleet FFN: d_model and d_ff of src/repro/configs/qwen3_1_7b.py;
+#: batches of FLEET_MAX_BATCH requests padded to each seq bucket.
+FLEET_D, FLEET_FF = 2048, 6144
+FLEET_MAX_BATCH, FLEET_SEQ = 8, 64
+FLEET_BUCKETS = (64, 128, 192)
+FLEET_M = tuple(FLEET_MAX_BATCH * s for s in FLEET_BUCKETS[1:])
 #: The qmatmul epilogue with a table: (tag, M, K, N, weight bits, table) —
 #: slice A's Tanh layer (int8 table) and Sigmoid layer (uint8 table shifted
 #: to int8 as the plan folds it before the last FC) at a lone row, a ragged
@@ -475,6 +497,9 @@ def check_kernels(device, flush, rows):
                 _check_matmul(rng, device, flush, rows, worst, m, k, EDGE_N, bits, False)
     for tag, m, k, n, relu in served_gemms():
         _check_matmul(rng, device, flush, rows, worst, m, k, n, 8, relu, tag=f",{tag}")
+    for m in FLEET_M:  # phase 8's FFN at seq buckets 128 and 192 (bucket 64's M = 512 is above)
+        _check_matmul(rng, device, flush, rows, worst, m, FLEET_D, FLEET_FF, 8, True, tag=",fleet")
+        _check_matmul(rng, device, flush, rows, worst, m, FLEET_FF, FLEET_D, 4, False, tag=",fleet")
 
     for m, n in LUT_SHAPES:
         x = torch.from_numpy(_int8(rng, (m, n))).to(device)
@@ -609,8 +634,9 @@ def run_slice(device):
         engine_tokens_per_s=got["engine_tokens"] / got["engine_s"],
         peak_bytes=peak, ref_prefill_ms=want["prefill_ms"], ref_decode_step_ms=want["decode_ms"],
     )
-    # what phase 7 holds its tuned token path against: this run's ref backend
-    ref = dict(cfg=cfg, params=params, tp=tps["ref"], want=want, drive=drive,
+    # what phase 7 holds its tuned token path against (this run's ref
+    # backend), and the cuda path phase 8 decodes on
+    ref = dict(cfg=cfg, params=params, tp=tps["ref"], cuda_tp=tps["cuda"], want=want, drive=drive,
                first_step=(dec_toks[0], np.full((n,), plen)), n=n, plen=plen, s_max=s_max)
     return perf, launches, ref
 
@@ -637,27 +663,36 @@ def same_as_ref(got, want, n, plen, vocab):
 
 
 def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
-    """One decode step at (n, s_max) under ``torch.profiler``: device ms by
-    kernel name (``(total_ms, [(name, ms, calls)])``, None when the profiler
-    records no device time) and every copy made of a per-head q/k/v view —
-    an ``aten::clone`` of a 3-D tensor whose last dim is ``d_head``; the
-    token path hands those views to qattention as they are."""
+    """One decode step at (n, s_max) under ``torch.profiler``, after a
+    profiled warm-up step that the trace discards (as ``device_breakdown``
+    does: a trace that starts with the step may drop its first device
+    event): device ms by kernel name (``(total_ms, [(name, ms, calls)])``,
+    None when the profiler records no device time) and every copy made of a
+    per-head q/k/v view — an ``aten::clone`` of a 3-D tensor whose last dim
+    is ``d_head``; the token path hands those views to qattention as they
+    are."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     cache = tp.init_cache(n, s_max)
     tp.decode_step(toks, pos, cache)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         tp.decode_step(toks, pos, cache)
         torch.cuda.synchronize()
+        prof.step()
+        tp.decode_step(toks, pos, cache)
+        torch.cuda.synchronize()  # the active step ends with the context
     if not any(e.input_shapes for e in prof.events() if e.name.startswith("aten::")):
         raise AssertionError("the profiler recorded no input shapes: the view copies cannot be checked")
     copies = [e.input_shapes[0] for e in prof.events()
               if e.name == "aten::clone" and e.input_shapes and len(e.input_shapes[0]) == 3
               and e.input_shapes[0][-1] == d_head]
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # the schedule's step annotation spans the window on the device too: not a kernel
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
     if not evs:
         return None, copies
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in evs), key=lambda r: -r[1])
@@ -1225,6 +1260,387 @@ def run_tuning(device, ref, card):
     return record, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: fleet serving, failover, checkpointed decode, generic pooling ops
+# ---------------------------------------------------------------------------
+
+#: Where phase 8 writes its fleet artifact and its checkpoints (git-ignored,
+#: removed after the phase).
+FLEET_DIR = os.path.join(ROOT, "build", "chip_smoke_fleet")
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+FLEET_REPLICAS, FLEET_REF_SAMPLE = 3, 4
+#: Checkpointed decode: steps, save interval, checkpoints kept, and the step
+#: whose first attempt crashes.
+CKPT_STEPS, CKPT_INTERVAL, CKPT_KEEP, CKPT_CRASH_AT = 8, 2, 2, 5
+#: Pooling cases (op, kernel, stride, pad) on a ResNet stem's output.
+POOL_CASES = [(op, k, st, pd) for op in ("MaxPool", "AveragePool")
+              for k, st, pd in ((2, 2, 0), (3, 2, 1))]
+POOL_IN = (4, 64, 112, 112)
+#: The float32 AveragePool against the numpy ReferenceRuntime, which sums a
+#: 3x3 window in another order (every other case is exact).
+POOL_FLOAT_RTOL, POOL_FLOAT_ATOL = 1e-5, 1e-6
+
+
+def build_fleet_ffn():
+    """The fleet's model: a two-axis per-token FFN, x int8 (N, S, 2048) →
+    FC 2048→6144 + ReLU (w8) → FC 6144→2048 (w4, as the token path's
+    down projection), the Fig 1 two-Mul rescale, per-channel, from seed-0
+    weights scaled by 1/sqrt(fan_in)."""
+    import numpy as np
+
+    from repro_torch.core import patterns, pqir, quant
+
+    rng = np.random.default_rng(0)
+    layers = []
+    for (a, b), bits, scale_x in (((FLEET_D, FLEET_FF), 8, 0.05), ((FLEET_FF, FLEET_D), 4, 0.1)):
+        w = rng.standard_normal((a, b), np.float32) / np.float32(np.sqrt(a))
+        bias = rng.standard_normal((b,), np.float32) * np.float32(0.1)
+        layers.append(quant.quantize_linear_layer(w, bias, scale_x, 0.1, per_channel=True, bits=bits))
+    gb = pqir.GraphBuilder("fleet_ffn")
+    x = gb.add_input("x", "int8", ("N", "S", FLEET_D))
+    h = patterns.fc_layer(gb, x, layers[0], "up", two_mul=True, activation="Relu")
+    y = patterns.fc_layer(gb, h, layers[1], "down", two_mul=True)
+    gb.add_output(y, "int8", ("N", "S", FLEET_D))
+    return gb.build()
+
+
+def fleet_waves(seed=1):
+    """One wave of FLEET_MAX_BATCH requests per seq bucket, each length
+    drawn from its bucket's range (1–64, 65–128, 129–192)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    waves = []
+    for hi in FLEET_BUCKETS:
+        lens = rng.integers(hi - FLEET_SEQ + 1, hi + 1, FLEET_MAX_BATCH)
+        waves.append([_int8(rng, (int(s), FLEET_D)) for s in lens])
+    return waves
+
+
+def _check_fleet(what, router, reqs, solo):
+    """The fleet's uid accounting holds, no replica missed its plan cache,
+    and request i equals example ``i % len(solo)`` run solo on the ref
+    backend, bit for bit.  Returns ``summary()``."""
+    import numpy as np
+
+    s = router.summary()
+    if s["lost"] or s["duplicates"] or s["pending"] or s["completed"] != s["requests"]:
+        raise AssertionError(f"{what}: requests {s['requests']}, completed {s['completed']}, "
+                             f"pending {s['pending']}, lost {s['lost']}, duplicates {s['duplicates']}")
+    misses = {name: rep["plan_cache"]["misses"] for name, rep in s["replicas"].items()}
+    if any(misses.values()):
+        raise AssertionError(f"{what}: plan-cache misses {misses}")
+    for i, r in enumerate(reqs):
+        (got,) = r.outputs.values()
+        want = solo[i % len(solo)]
+        if not r.done or got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"{what} request {i} (uid {r.uid}, {r.replica}): differs from "
+                                 "its solo run on the ref backend")
+    return s
+
+
+def _raiser(feeds):
+    raise RuntimeError("replica down (injected)")
+
+
+def run_fleet(device, card):
+    """Phase 8 (a) and (b): record the FFN's hot cells, save the artifact,
+    warm-start FLEET_REPLICAS replicas behind a ShardedRouter, serve rounds
+    of the waves for MIN_WINDOW_S, then a wave with one replica failing.
+    Returns the record and the kernels' launches in the two served runs."""
+    import numpy as np
+    import torch
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.backend.artifact import save_artifact
+    from repro_torch.core.compile import compile_model
+    from repro_torch.core.runtime import ReferenceRuntime
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (
+        CompiledModelServer, CompiledServerConfig, RouterConfig, ShardedRouter,
+    )
+
+    t = time.perf_counter()
+    model = build_fleet_ffn()
+    waves = fleet_waves()
+    examples = [x for wave in waves for x in wave]
+    axes = {"N": None, "S": FLEET_SEQ}
+    cm = compile_model(model, backend="cuda", device=device, dynamic_axes=axes)
+    ref_cm = compile_model(model, backend="ref", device=device, dynamic_axes=axes)
+    build_s = time.perf_counter() - t
+    out = cm.output_names[0]
+    log(f"  model: x int8 (N, S, {FLEET_D}) -> FC {FLEET_D}->{FLEET_FF} ReLU w8 -> FC "
+        f"{FLEET_FF}->{FLEET_D} w4, per-channel, seed 0 (quantize + compile cuda and ref "
+        f"{build_s:.1f} s); waves of {FLEET_MAX_BATCH} requests at lengths "
+        f"{[sorted(x.shape[0] for x in w) for w in waves]}")
+
+    srv = CompiledModelServer(cm, CompiledServerConfig(max_batch=FLEET_MAX_BATCH))
+    for wave in waves:  # record the hot cells: one batch per seq bucket
+        for x in wave:
+            srv.submit(x)
+        srv.run_until_drained()
+    if len(cm.plan_cache.keys()) != len(FLEET_BUCKETS):
+        raise AssertionError(f"recorded cells {cm.plan_cache.keys()}, want one per seq bucket")
+    solo = [ref_cm.run({"x": x[None]})[out][0].cpu().numpy() for x in examples]
+    if len(np.unique(np.concatenate([s.ravel() for s in solo]))) < 2:
+        raise AssertionError("fleet: every solo response holds one code — a degenerate model")
+
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    path = os.path.join(FLEET_DIR, "fleet.json")
+    try:
+        t = time.perf_counter()
+        save_artifact(cm, path)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path) + os.path.getsize(path[:-5] + ".npz")
+        t = time.perf_counter()
+        router = ShardedRouter.from_artifact(
+            path, replicas=FLEET_REPLICAS, device=device, warm=True,
+            server_cfg=CompiledServerConfig(max_batch=FLEET_MAX_BATCH),
+            cfg=RouterConfig(failure_threshold=1))
+        torch.cuda.synchronize()
+        start_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    const_bytes = sum(c.numel() * c.element_size() for st in router.replicas[0].server.cm.plan.steps
+                      for c in st.consts if isinstance(c, torch.Tensor))
+    log(f"  artifact: {size} bytes with its sidecar, saved in {save_s:.2f} s; {FLEET_REPLICAS} "
+        f"replicas warm-started in {start_s:.2f} s, {const_bytes} bytes of device "
+        f"constants each  ({card})")
+
+    # (a) rounds of the waves, each wave submitted and drained
+    reset_launch_counts()
+    reqs, rounds = [], 0
+    t = time.perf_counter()
+    while rounds == 0 or time.perf_counter() - t < MIN_WINDOW_S:
+        for wave in waves:
+            reqs += [router.submit(x) for x in wave]
+            router.run_until_drained()
+        rounds += 1
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    s = _check_fleet("fleet", router, reqs, solo)
+    owners = s["cell_owners"]
+    if sorted(owners) != sorted(f"S={b}" for b in FLEET_BUCKETS) or len(set(owners.values())) != 3:
+        raise AssertionError(f"fleet: cell owners {owners}, want 3 cells on 3 replicas")
+    batches = sum(rep["batches"] for rep in s["replicas"].values())
+    if (launches["qmatmul"], launches["qmatmul_packed"]) != (batches, batches):
+        raise AssertionError(f"fleet: launches {launches} over {batches} batches, want one "
+                             "qmatmul and one qmatmul_packed a batch")
+    # the shortest requests, one thread each: numpy's integer matmul has no
+    # BLAS, so the oracle costs seconds a request at these widths
+    sample = sorted(range(len(examples)), key=lambda i: examples[i].shape[0])[:FLEET_REF_SAMPLE]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(sample)) as pool:
+        oracle = list(pool.map(lambda i: ReferenceRuntime(model).run({"x": examples[i][None]})[out][0],
+                               sample))
+    rt_s = time.perf_counter() - t
+    for i, want in zip(sample, oracle):
+        if not np.array_equal(want, reqs[i].outputs[out]):
+            raise AssertionError(f"fleet request {i}: differs from ReferenceRuntime")
+    log(f"  {len(reqs)} requests: {rounds} rounds of waves {[len(w) for w in waves]} in "
+        f"{wall:.3f} s = {len(reqs) / wall:.1f} requests/s, {batches} batches; cells {owners}; "
+        f"0 plan-cache misses, lost 0, duplicates 0; every response == its solo run on ref bit "
+        f"for bit; requests {sample} == ReferenceRuntime ({rt_s:.1f} s)  ({card})")
+    replicas = {}
+    for name, h in s["health"].items():
+        rep = s["replicas"][name]
+        replicas[name] = dict(steps=h["steps"], p50_ms=rep["latency_p50_ms"],
+                              p95_ms=rep["latency_p95_ms"], ewma_s=h["step_time_ewma_s"],
+                              straggler_steps=len(h["straggler_steps"]))
+        log(f"  replica {name}: {h['steps']} steps, latency p50 {rep['latency_p50_ms']:.2f} ms, "
+            f"p95 {rep['latency_p95_ms']:.2f} ms, step-time EWMA "
+            f"{1e3 * h['step_time_ewma_s']:.3f} ms, {len(h['straggler_steps'])} straggler "
+            f"steps  ({card})")
+
+    # (b) a fourth wave of the pattern with the S=64 cell's replica failing
+    victim_cell = ("S", FLEET_BUCKETS[0])
+    failed = [router.submit(x) for x in examples]
+    victim = router.replicas[router._cell_owner[victim_cell]]
+    survivor = next(r for r in router.replicas if r is not victim)
+    expect = [r.uid for r in victim.server.queue]
+    victim.server.cm.run = _raiser
+    reset_launch_counts()
+    router.run_until_drained()
+    launches_b = launch_counts()
+    s2 = _check_fleet("failover", router, reqs + failed, solo)
+    migrated = [r for r in failed if r.rerouted]
+    if (s2["failovers"], s2["rerouted"]) != (1, len(expect)) or not expect:
+        raise AssertionError(f"failover: failovers {s2['failovers']}, rerouted {s2['rerouted']}, "
+                             f"the victim held {len(expect)}")
+    if [r.uid for r in migrated] != expect or any(r.replica != survivor.name for r in migrated):
+        raise AssertionError("failover: the migrated requests lost their order or their owner")
+    if victim.healthy or s2["cell_owners"][f"S={FLEET_BUCKETS[0]}"] != survivor.name:
+        raise AssertionError(f"failover: victim healthy {victim.healthy}, owners "
+                             f"{s2['cell_owners']}, survivor {survivor.name}")
+    log(f"  failover: {victim.name} (cell S={FLEET_BUCKETS[0]}) raised; failovers 1, rerouted "
+        f"{len(expect)} in order onto {survivor.name}, the cell re-pointed; lost 0, duplicates "
+        f"0, 0 misses; responses == ref bit for bit  ({card})")
+    record = dict(requests=len(reqs), rounds=rounds, window_s=wall, requests_per_s=len(reqs) / wall,
+                  batches=batches, artifact_bytes=size, save_s=save_s, start_s=start_s,
+                  const_bytes_per_replica=const_bytes, replicas=replicas, cell_owners=owners,
+                  failover=dict(victim=victim.name, survivor=survivor.name, rerouted=len(expect),
+                                owners=s2["cell_owners"]),
+                  reference_runtime_s=rt_s)
+    return record, {k: launches[k] + launches_b[k] for k in launches}
+
+
+def _state_leaves(state):
+    return [state["tokens"], state["pos"]] + [state["kv"][k] for k in sorted(state["kv"])]
+
+
+def _same_state(a, b, what):
+    for x, y in zip(_state_leaves(a), _state_leaves(b)):
+        _same(x, y, what)
+
+
+def run_checkpointed_decode(ref, card):
+    """Phase 8 (c): phase 4's cuda token path decodes CKPT_STEPS steps at
+    (4, 512) under ``run_resilient``, checkpointing every CKPT_INTERVAL
+    steps, its first attempt at step CKPT_CRASH_AT crashing; the result
+    equals an uninterrupted run bit for bit.  Returns the record and the
+    kernels' launches in the resilient run."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import CheckpointManager, CheckpointManagerConfig, run_resilient
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    tp, n, plen, s_max = ref["cuda_tp"], ref["n"], ref["plen"], ref["s_max"]
+    toks0 = ref["first_step"][0]
+    rows = ref["want"]["prefill"][1]
+
+    def make_state():
+        kv = tp.init_cache(n, s_max)
+        for name, r in rows.items():
+            kv[name][:, :plen] = r
+        return {"kv": kv, "tokens": torch.as_tensor(toks0, device=tp.device),
+                "pos": torch.full((n,), plen, dtype=torch.int64, device=tp.device)}
+
+    def step_fn(state, step):
+        logits, kv = tp.decode_step(state["tokens"].cpu().numpy(), state["pos"].cpu().numpy(),
+                                    state["kv"])
+        return {"kv": kv, "tokens": logits.argmax(-1).to(torch.int32)[:, None],
+                "pos": state["pos"] + 1}
+
+    state = make_state()
+    for step in range(CKPT_STEPS):
+        state = step_fn(state, step)
+        if step == CKPT_STEPS - 2:  # what the last checkpoint will hold
+            last_saved = {"kv": {k: v.clone() for k, v in state["kv"].items()},
+                          "tokens": state["tokens"].clone(), "pos": state["pos"].clone()}
+    want = state
+
+    crashes = []
+
+    def crashing(state, step):
+        if step == CKPT_CRASH_AT and not crashes:
+            crashes.append(step)
+            raise RuntimeError("node failure (injected)")
+        return step_fn(state, step)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(CheckpointManagerConfig(
+            os.path.join(CKPT_DIR, "run"), interval_steps=CKPT_INTERVAL, keep_last=CKPT_KEEP))
+        reset_launch_counts()
+        t = time.perf_counter()
+        got = run_resilient(make_state, crashing, manager=mgr, total_steps=CKPT_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches = launch_counts()
+        kept = sorted(p for p in os.listdir(mgr.cfg.directory) if p.startswith("step_"))
+        if crashes != [CKPT_CRASH_AT] or kept != ["step_4", "step_6"]:
+            raise AssertionError(f"resilient decode: crashes {crashes}, checkpoints kept {kept}")
+        _same_state(got, want, "resilient decode against the uninterrupted one")
+        back, step, _ = ckpt.restore(mgr.cfg.directory, make_state())
+        if step != CKPT_STEPS - 2 or any(x.device.type != "cuda" for x in _state_leaves(back)):
+            raise AssertionError(f"restored step {step} on {[x.device.type for x in _state_leaves(back)]}")
+        _same_state(back, last_saved, "the last checkpoint")
+
+        # one save and one restore of the state, timed (cuda -> disk -> cuda)
+        target = make_state()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        saved = ckpt.save(os.path.join(CKPT_DIR, "timed"), CKPT_STEPS, got)
+        save_ms = (time.perf_counter() - t) * 1e3
+        nbytes = sum(os.path.getsize(os.path.join(saved, f)) for f in os.listdir(saved))
+        t = time.perf_counter()
+        back, _, _ = ckpt.restore(os.path.join(CKPT_DIR, "timed"), target)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        _same_state(back, got, "timed restore")
+
+        # written from CPU tensors, restored onto the card
+        host = {"kv": {k: v.cpu() for k, v in got["kv"].items()}, "tokens": got["tokens"].cpu(),
+                "pos": got["pos"].cpu()}
+        ckpt.save(os.path.join(CKPT_DIR, "host"), 0, host)
+        card_side, _, _ = ckpt.restore(os.path.join(CKPT_DIR, "host"), host, shardings="cuda")
+        if any(x.device.type != "cuda" for x in _state_leaves(card_side)):
+            raise AssertionError("a CPU-written checkpoint restored with shardings='cuda' left the card")
+        _same_state(card_side, got, "CPU-written checkpoint on the card")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log(f"  checkpointed decode: {CKPT_STEPS} steps at ({n},{s_max}) under run_resilient in "
+        f"{run_s:.2f} s, saved every {CKPT_INTERVAL}, step {CKPT_CRASH_AT} crashed once and "
+        f"resumed from step {CKPT_CRASH_AT - 1}; tokens and KV == the uninterrupted run bit for "
+        f"bit; the last checkpoint restored on cuda; a CPU-written checkpoint restored with "
+        f"shardings='cuda' == the original  ({card})")
+    log(f"  checkpoint: {nbytes} bytes ({len(_state_leaves(got))} leaves), save {save_ms:.1f} ms, "
+        f"restore {restore_ms:.1f} ms  ({card})")
+    record = dict(steps=CKPT_STEPS, run_s=run_s, bytes=nbytes, save_ms=save_ms,
+                  restore_ms=restore_ms, leaves=len(_state_leaves(got)))
+    return record, launches
+
+
+def run_pooling(device, card):
+    """Phase 8 (d): the generic MaxPool / AveragePool ops on the card, int8
+    and float32, against the numpy ReferenceRuntime and the same ops run on
+    the CPU."""
+    import numpy as np
+
+    from repro_torch.core.compile import compile_model
+    from repro_torch.core.pqir import GraphBuilder
+    from repro_torch.core.runtime import ReferenceRuntime
+
+    rng = np.random.default_rng(2)
+    out = []
+    for dtype in ("int8", "float32"):
+        x = _int8(rng, POOL_IN) if dtype == "int8" else rng.standard_normal(POOL_IN, np.float32)
+        for op, k, st, pd in POOL_CASES:
+            side = (POOL_IN[2] + 2 * pd - k) // st + 1
+            gb = GraphBuilder(f"{op.lower()}_{dtype}")
+            gb.add_input("x", dtype, POOL_IN)
+            y = gb.op(op, ["x"], kernel_shape=(k, k), strides=(st, st), pads=(pd,) * 4)
+            gb.add_output(y, dtype, POOL_IN[:2] + (side, side))
+            model = gb.build()
+            kw = dict(backend="cuda", fuse=False, optimize=False)
+            cm = compile_model(model, device=device, **kw)
+            if [s.kernel for s in cm.plan.steps] != [f"op.{op}"]:
+                raise AssertionError(f"{op}: plan {[s.kernel for s in cm.plan.steps]}")
+            (got,) = cm.run({"x": x}).values()
+            got = got.cpu().numpy()
+            (host,) = compile_model(model, device="cpu", **kw).run({"x": x}).values()
+            (want,) = ReferenceRuntime(model).run({"x": x}).values()
+            tag = f"{op} {k}x{k}/{st} pad {pd} {dtype} {tuple(got.shape)}"
+            if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, host.numpy()):
+                raise AssertionError(f"{tag}: the card and the CPU disagree")
+            if dtype == "float32" and op == "AveragePool":
+                np.testing.assert_allclose(got, want, rtol=POOL_FLOAT_RTOL, atol=POOL_FLOAT_ATOL,
+                                           err_msg=tag)
+                err = float(np.abs(got - want).max())
+            elif not np.array_equal(got, want):
+                raise AssertionError(f"{tag}: differs from ReferenceRuntime")
+            else:
+                err = 0.0
+            out.append(dict(case=tag, max_abs_err_vs_reference_runtime=err))
+    log(f"  pooling on cuda: {len(out)} cases ({', '.join(c['case'] for c in out[:4])}; the same "
+        f"in float32) == the CPU bit for bit and == ReferenceRuntime (float32 AveragePool "
+        f"within rtol {POOL_FLOAT_RTOL}, atol {POOL_FLOAT_ATOL}: max |diff| "
+        f"{max(c['max_abs_err_vs_reference_runtime'] for c in out):.3g})  ({card})")
+    return out
+
+
 def lut_row(rows, worst, launches):
     """The kernels-line row of qact_lut, which runs by two routes: on the
     main path as the table in the qmatmul epilogue (slice A's Tanh layer
@@ -1286,23 +1702,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/8] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/9] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/8] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/9] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/8] kernels against their plain versions (tolerance 0)")
+    log("[3/9] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/8] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    log(f"[4/9] token path: compiled token path, backend cuda vs backend ref  ({card})")
     perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
@@ -1325,7 +1741,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/8] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/9] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -1338,7 +1754,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/8] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/9] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -1351,7 +1767,7 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
-    log(f"[7/8] autotune: the token path tuned on the card (cold, then warm from the tile "
+    log(f"[7/9] autotune: the token path tuned on the card (cold, then warm from the tile "
         f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
         f"server's background; every output against the ref backend  ({card})")
     tuning, launches_tune = run_tuning(device, ref, card)
@@ -1359,8 +1775,25 @@ def main() -> int:
         f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
         f"candidates measured between batches included: {tuning['slice_a']['launches']}")
 
+    log(f"[8/9] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
+        f"by {FLEET_REPLICAS} replicas warm-started from its artifact behind a ShardedRouter, one "
+        f"replica failing; phase 4's decode checkpointed through a crash; the generic pooling ops  "
+        f"({card})")
+    t = time.perf_counter()
+    fleet, launches_fleet = run_fleet(device, card)
+    checkpoint, launches_ckpt = run_checkpointed_decode(ref, card)
+    pooling = run_pooling(device, card)
+    launches_8 = {k: launches_fleet.get(k, 0) + launches_ckpt.get(k, 0) for k in launches_tok}
+    missing = [k for k in ("qmatmul", "qmatmul_packed", "qattention") if launches_8[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 8's served runs: {missing}")
+    log(f"  launches in phase 8's served runs (the fleet's rounds and its failover wave, the "
+        f"resilient decode): qmatmul {launches_8['qmatmul']}, qmatmul_packed "
+        f"{launches_8['qmatmul_packed']}, qattention {launches_8['qattention']}; phase 8 took "
+        f"{time.perf_counter() - t:.1f} s  ({card})")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
-                + launches_tune.get(k, 0) for k in launches_tok}
+                + launches_tune.get(k, 0) + launches_8.get(k, 0) for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
     # at the decode shapes (qattention: one launch per head)
@@ -1395,8 +1828,9 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[8/8] summary: launches are summed over the served runs of phases 4-7 (phase 7: "
-        "the tuned and the warm-started token path's drives, no tuning candidate); "
+    log("[9/9] summary: launches are summed over the served runs of phases 4-8 (phase 7: "
+        "the tuned and the warm-started token path's drives, no tuning candidate; phase 8: "
+        "the fleet's rounds and failover wave and the resilient decode); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
@@ -1411,9 +1845,11 @@ def main() -> int:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "n_layers": N_LAYERS, "rows": rows, "qmatmul_instances": instances,
                    "slice": perf, "slice_a": perf_a,
-                   "slice_b": perf_b, "autotune": tuning,
+                   "slice_b": perf_b, "autotune": tuning, "fleet": fleet,
+                   "checkpoint": checkpoint, "pooling": pooling,
                    "launches": {"token_path": launches_tok, "slice_a": launches_a,
-                                "slice_b": launches_b, "autotune": launches_tune},
+                                "slice_b": launches_b, "autotune": launches_tune,
+                                "fleet_and_checkpoints": launches_8},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -241,6 +241,40 @@ def _t_gemm(attrs, ins):
     return [y.to(ins[0].dtype)]
 
 
+def _pool_windows(x, attrs, fill):
+    """(N, C, OH, OW, KH, KW) windows of an NCHW tensor padded with
+    ``fill`` (a strided view of the padded copy: any dtype, any device)."""
+    kh, kw = attrs["kernel_shape"]
+    sh, sw = tuple(attrs.get("strides", (kh, kw)))
+    pads = tuple(attrs.get("pads", (0, 0, 0, 0)))
+    x = torch.nn.functional.pad(x, (pads[1], pads[3], pads[0], pads[2]), value=fill)
+    return x.unfold(2, kh, sh).unfold(3, kw, sw)
+
+
+@_top("MaxPool")
+def _t_maxpool(attrs, ins):
+    # in the input's own dtype, padded with its least value: exact, and no
+    # library pooling kernel (whose integer support differs by device)
+    x = ins[0]
+    fill = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
+    return [torch.amax(_pool_windows(x, attrs, fill), dim=(-2, -1))]
+
+
+@_top("AveragePool")
+def _t_avgpool(attrs, ins):
+    # float32 sum over the window, pads included, tap by tap in row-major
+    # order; divided by kh*kw and cast back by truncation.  The divisor is a
+    # device tensor: CUDA divides by a host scalar as a multiply by its
+    # reciprocal, which is not the IEEE quotient.
+    win = _pool_windows(ins[0].to(torch.float32), attrs, 0.0)
+    kh, kw = win.shape[-2:]
+    acc = win[..., 0, 0]
+    for t in range(1, kh * kw):
+        acc = acc + win[..., t // kw, t % kw]
+    count = torch.full((), kh * kw, dtype=torch.float32, device=acc.device)
+    return [(acc / count).to(ins[0].dtype)]
+
+
 #: Operand positions that are shape parameters: they stay host numpy arrays
 #: when the compiler bakes a constant in (every other constant goes to the
 #: plan's device as a tensor).

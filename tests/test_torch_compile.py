@@ -3,7 +3,9 @@
 * every generic op of the port's torch table against
   ``repro.core.runtime.ReferenceRuntime`` (the cases of
   ``tests/test_conformance_sweep.py``, built by ``repro`` and read by the
-  port through the shared PQ-IR JSON);
+  port through the shared PQ-IR JSON; each case's seed pinned in
+  ``SEED_ORDER``), and int8 MaxPool / AveragePool with strides and pads
+  against ``repro``'s compiled generic ops;
 * the quickstart MLP and both token-path graphs: the same step kernel ids in
   the same order as ``repro``'s plan, and equal outputs on the port's ``ref``
   and ``cuda`` backends (on the CPU the ``cuda`` wrappers run their plain
@@ -55,9 +57,25 @@ def _port(model) -> Model:
     return Model.from_json(model.to_json())
 
 
+#: Each op's case seed: its index here.  The first 31 are the table's ops in
+#: sorted order before the pooling ops joined it; new ops are appended, so
+#: no existing case's seed moves.
+SEED_ORDER = [
+    "Add", "Cast", "Clip", "Concat", "ConvInteger", "DequantizeLinear", "Div", "Erf", "Flatten",
+    "Gather", "Gemm", "GlobalAveragePool", "MatMul", "MatMulInteger", "Mul", "Pow",
+    "QuantizeLinear", "ReduceMax", "ReduceMean", "ReduceSum", "Relu", "Reshape", "Sigmoid",
+    "Slice", "Softmax", "Sqrt", "Squeeze", "Sub", "Tanh", "Transpose", "Unsqueeze",
+    "AveragePool", "MaxPool",
+]
+
+
+def test_every_op_has_a_pinned_seed():
+    assert sorted(SEED_ORDER) == sorted(_TOPS) and len(set(SEED_ORDER)) == len(SEED_ORDER)
+
+
 @pytest.mark.parametrize("op", sorted(_TOPS))
 def test_generic_op_matches_reference_runtime(op):
-    model, feeds = CASES[op](np.random.default_rng(sorted(_TOPS).index(op)))
+    model, feeds = CASES[op](np.random.default_rng(SEED_ORDER.index(op)))
     want = ReferenceRuntime(model).run(feeds)
     cm = compile_model(_port(model), backend="ref", device="cpu", fuse=False, optimize=False)
     assert all(s.kernel == f"op.{op}" for s in cm.plan.steps)
@@ -69,6 +87,43 @@ def test_generic_op_matches_reference_runtime(op):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=op)
         else:
             np.testing.assert_array_equal(g, w, err_msg=op)
+
+
+def _pool_model(op, kernel, stride, pad, dtype):
+    gb = GraphBuilder(f"{op.lower()}_{dtype}")
+    x = gb.add_input("x", dtype, (2, 3, 9, 9))
+    y = gb.op(op, [x], kernel_shape=(kernel, kernel), strides=(stride, stride), pads=(pad,) * 4)
+    out = (9 + 2 * pad - kernel) // stride + 1
+    gb.add_output(y, dtype, (2, 3, out, out))
+    return gb.build()
+
+
+@pytest.mark.parametrize("op", ["MaxPool", "AveragePool"])
+@pytest.mark.parametrize("kernel,stride,pad", [(2, 2, 0), (3, 2, 1)], ids=["2x2s2", "3x3s2p1"])
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_int8_pool_matches_repro_generic_op(op, kernel, stride, pad, backend):
+    """int8 pooling with strides and pads: the port's generic op equals
+    ``repro``'s compiled generic op and ReferenceRuntime, tolerance 0.
+
+    ``repro``'s generic MaxPool refuses int8 (``reduce_window`` gets an
+    int32 init value beside int8 operands; ROADMAP.md §C), so its int8
+    answer is its float32 MaxPool of the same codes cast back: exact, since
+    every int8 code is a float32 and the max of codes is a code."""
+    model = _pool_model(op, kernel, stride, pad, "int8")
+    x = np.random.default_rng(kernel).integers(-128, 128, (2, 3, 9, 9)).astype(np.int8)
+    if op == "MaxPool":
+        jcm = jcompile(_pool_model(op, kernel, stride, pad, "float32"), fuse=False, optimize=False)
+        want = {k: np.asarray(v).astype(np.int8) for k, v in jcm.run({"x": x.astype(np.float32)}).items()}
+    else:
+        want = {k: np.asarray(v) for k, v in jcompile(model, fuse=False, optimize=False).run({"x": x}).items()}
+    cm = compile_model(_port(model), backend=backend, device="cpu", fuse=False, optimize=False)
+    assert [s.kernel for s in cm.plan.steps] == [f"op.{op}"]
+    got = cm.run({"x": x})
+    rt = ReferenceRuntime(model).run({"x": x})
+    for (name, g), w in zip(got.items(), want.values()):
+        assert g.dtype == torch.int8 and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=op)
+        np.testing.assert_array_equal(rt[name], w, err_msg=op)
 
 
 def _quickstart_mlp():

@@ -3,7 +3,7 @@
 * ``repro_torch`` imports ``torch`` and numpy and nothing of JAX or of the JAX
   package ``repro`` — checked in a fresh interpreter that imports every
   module of the port, and by an AST scan of every port source, of
-  ``chip_smoke.py`` and of the A/B timing scripts;
+  ``chip_smoke.py``, of the A/B timing scripts and of the tile sweep;
 * the entry points run on the CUDA card unless the caller asks for the CPU,
   and raise — never fall back — when no card is present;
 * the numpy-only modules the port copies from ``repro`` stay byte-for-byte
@@ -23,14 +23,17 @@ import torch
 
 from repro_torch.core.compile import compile_model
 from repro_torch.core.pqir import GraphBuilder
+from repro_torch.backend.artifact import save_artifact
 from repro_torch.serving.engine import EngineConfig, ServeEngine
+from repro_torch.serving.router import ShardedRouter
 from repro_torch.serving.token_path import CompiledTokenPath, TokenPathConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "qmatmul_ab.py",
                                         ROOT / "scripts" / "qattention_ab.py",
-                                        ROOT / "scripts" / "qact_lut_ab.py"]
+                                        ROOT / "scripts" / "qact_lut_ab.py",
+                                        ROOT / "scripts" / "autotune_sweep.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -69,7 +72,8 @@ def test_source_imports_nothing_of_jax_or_repro(path):
 
 SLICE_MODULES = ["core/calibrate.py", "core/toolchain.py", "core/export.py",
                  "kernels/qact_lut.py", "kernels/ops.py", "serving/compiled.py",
-                 "backend/cost.py", "backend/autotune.py", "backend/artifact.py"]
+                 "backend/cost.py", "backend/autotune.py", "backend/artifact.py",
+                 "checkpoint/ckpt.py", "serving/router.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -86,12 +90,12 @@ COPIES = sorted(
     [str(p.relative_to(PORT)) for d in ("obs", "passes") for p in (PORT / d).glob("*.py")]
     + [f"core/{m}.py" for m in ("pqir", "quant", "patterns", "runtime", "cache", "calibrate",
                                 "toolchain", "export")]
-    + ["kernels/pack.py"]
+    + ["kernels/pack.py", "distributed/fault_tolerance.py"]
 )
 
 
 def test_the_copies_are_all_listed():
-    assert len(COPIES) == 19
+    assert len(COPIES) == 20
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -110,7 +114,9 @@ def _tiny_model():
     return gb.build(opset=17)
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    path = str(tmp_path / "relu.json")
+    save_artifact(compile_model(_tiny_model(), device="cpu", batch="dynamic"), path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         compile_model(_tiny_model())
@@ -118,6 +124,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         compile_model(_tiny_model(), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CompiledTokenPath(TokenPathConfig(n_layers=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedRouter.from_artifact(path, replicas=1)
 
 
 def test_cpu_on_request_and_results_stay_on_the_device():
