@@ -68,12 +68,28 @@ Drives the port's main path on one CUDA card and fails loudly:
    through a crash, equal to an uninterrupted run bit for bit, and a
    CPU-written checkpoint restored onto the card; (d) the generic
    MaxPool / AveragePool ops on the card against ``ReferenceRuntime``;
-9. summary — one JSON line of the kernels with their launch counts summed
-   over the served runs of phases 4–8, then the card line, then the
+9. model zoo — (a) ``qwen3_1_7b`` at its full published config (28 layers,
+   vocab padded to 152064; float32 masters from a seeded generator on the
+   card) served by ``ServeEngine(params, cfg, EngineConfig(slots=4))``
+   through its default ``OpaqueModelAdapter`` in the three postures of
+   ``examples/serve_quantized.py`` (bf16/bf16-kv, bf16/int8-kv,
+   w8a8/int8-kv): 8 greedy requests (six prompts of 24 tokens, two of 40),
+   8 new tokens each; tokens/s, prefill and decode-step ms, peak memory,
+   token agreement with bf16/bf16-kv, and one profiled decode step; (b)
+   the same weights cut to ``ZOO_CUT_LAYERS`` layers, prefill + 4 decode
+   steps on the card against the CPU in bf16/bf16-kv and w8a8/int8-kv;
+   (c) every other architecture at ``reduced()`` the same way, 2 decode
+   steps; (d) ``QuantizedLinear`` 2048 → 6144 at M = 4, 77, 512 on backend
+   ``cuda`` (the qmatmul kernel) equal to ``ref`` bit for bit;
+10. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–9, then the card line, then the
    ``{"ok": true, ...}`` line.
 
-Each of phases 4–8 zeroes the launch counters just before each counted run
-and reads them just after; a kernel of that path launched no time fails.
+Each of phases 4–9 zeroes the launch counters just before each counted run
+and reads them just after; a kernel of that path launched no time fails
+(the zoo's served runs launch none of the hand-written kernels — they
+compute in plain PyTorch, as ``repro`` computes them in XLA — and must
+show none; its kernel is qmatmul under ``QuantizedLinear``).
 Phase 7's served runs are the tuned and the warm-started token path's
 drives; phase 8's, the fleet's rounds, its failover wave and the resilient
 decode; the launches of the tuner's candidates (timed on synthetic inputs,
@@ -592,7 +608,7 @@ def run_slice(device):
         out["decode_ms"] = sorted(step_ms)[len(step_ms) // 2]
         if not engine:
             return out
-        eng = ServeEngine(EngineConfig(slots=4, max_len=512, prefill_bucket=32),
+        eng = ServeEngine(ecfg=EngineConfig(slots=4, max_len=512, prefill_bucket=32),
                           adapter=CompiledTokenAdapter(tp))
         reqs = [Request(uid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
         for r in reqs:
@@ -662,6 +678,19 @@ def same_as_ref(got, want, n, plen, vocab):
         _same(got["decode"][1][name], want["decode"][1][name], f"decode state {name}")
 
 
+def device_rows(prof, steps=1):
+    """Device ms and calls per step by kernel name, largest first, from a
+    ``torch.profiler`` trace over ``steps`` steps ([] when it recorded no
+    device time).  The schedule's step annotation spans the window on the
+    device too: not a kernel."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+    return sorted(((e.key, e.self_device_time_total / 1e3 / steps, e.count / steps) for e in evs),
+                  key=lambda r: -r[1])
+
+
 def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
     """One decode step at (n, s_max) under ``torch.profiler``, after a
     profiled warm-up step that the trace discards (as ``device_breakdown``
@@ -672,7 +701,6 @@ def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
     is ``d_head``; the token path hands those views to qattention as they
     are."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     cache = tp.init_cache(n, s_max)
@@ -690,12 +718,9 @@ def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
     copies = [e.input_shapes[0] for e in prof.events()
               if e.name == "aten::clone" and e.input_shapes and len(e.input_shapes[0]) == 3
               and e.input_shapes[0][-1] == d_head]
-    # the schedule's step annotation spans the window on the device too: not a kernel
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
-    if not evs:
+    rows = device_rows(prof)
+    if not rows:
         return None, copies
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in evs), key=lambda r: -r[1])
     return (sum(r[1] for r in rows), rows[:top]), copies
 
 
@@ -817,7 +842,6 @@ def device_breakdown(cm, examples, max_batch, top=6):
     profiler records no device time."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     feeds = {cm.input_names[0]: np.stack(examples[:max_batch])}
@@ -831,14 +855,9 @@ def device_breakdown(cm, examples, max_batch, top=6):
         for _ in range(PROFILED_FORWARDS):
             cm.run(feeds)
         torch.cuda.synchronize()  # the active step ends with the context
-    # the schedule's step annotation spans the window on the device too: not a kernel
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
-    if not evs:
+    rows = device_rows(prof, PROFILED_FORWARDS)
+    if not rows:
         return None
-    n = PROFILED_FORWARDS
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in evs),
-                  key=lambda r: -r[1])
     return sum(r[1] for r in rows), rows[:top], [r[0] for r in rows]
 
 
@@ -1641,6 +1660,347 @@ def run_pooling(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the model zoo served through ServeEngine's default adapter
+# ---------------------------------------------------------------------------
+
+#: The three postures of ``examples/serve_quantized.py``: KV cache dtype and
+#: whether the weights are converted to W8A8.
+ZOO_POSTURES = {"bf16/bf16-kv": ("bf16", False), "bf16/int8-kv": ("int8", False),
+                "w8a8/int8-kv": ("int8", True)}
+#: (a)'s traffic: greedy requests, prompt lengths (six fill the 32-token
+#: bucket short of its end, two the 64-token one), new tokens each, slots.
+ZOO_PROMPTS, ZOO_NEW_TOKENS, ZOO_SLOTS = (24,) * 6 + (40,) * 2, 8, 4
+#: (b) and (c): the card against the CPU.  Logits within ZOO_TOL ·
+#: max(1, max |CPU|): the two devices sum float32 products in other orders
+#: (measured on the CPU against repro: ≤ 1e-6 · max), and a bf16 KV entry
+#: or an int8 activation / KV code can round to its neighbour on one side
+#: (one such code moved a reduced model's logits by 1.7e-4 · max on the
+#: CPU); greedy tokens equal wherever the CPU's top-2 margin exceeds 10×
+#: that bound.
+ZOO_TOL = 1e-3
+ZOO_CUT_LAYERS, ZOO_DECODE_STEPS, ZOO_REDUCED_STEPS = 2, 4, 2
+#: (d): QuantizedLinear 2048 -> 6144 at these M.
+ZOO_QLINEAR_M = (4, 77, 512)
+
+
+def _timed(fn, times):
+    """``fn`` wrapped to append its synchronised host-clock ms to ``times``."""
+    import torch
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    return timed
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def serve_posture(params, cfg, prompts, profile=False):
+    """One posture of (a): warm the engine's paths on one request of each
+    prompt length, then serve every request, timing each adapter call;
+    optionally profile one decode step after a discarded warm-up step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
+
+    ecfg = EngineConfig(slots=ZOO_SLOTS, max_len=max(ZOO_PROMPTS) + ZOO_NEW_TOKENS + 8)
+    warm = ServeEngine(params, cfg, ecfg)
+    for i, n in enumerate(sorted(set(ZOO_PROMPTS))):
+        warm.submit(Request(uid=i, prompt=prompts[ZOO_PROMPTS.index(n)], max_new_tokens=2))
+    warm.run_until_drained()
+    del warm
+    eng = ServeEngine(params, cfg, ecfg)
+    prefill_ms, decode_ms = [], []
+    eng.adapter.prefill = _timed(eng.adapter.prefill, prefill_ms)
+    decode = eng.adapter.decode
+    eng.adapter.decode = _timed(decode, decode_ms)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=ZOO_NEW_TOKENS) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    out = dict(tokens=sum(len(r.generated) for r in reqs), wall_s=wall,
+               prefill_ms=_median(prefill_ms), decode_step_ms=_median(decode_ms),
+               decode_steps=len(decode_ms), resident_bytes=resident,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               metrics=dict(eng.metrics), launches=launch_counts(),
+               generated=[list(r.generated) for r in reqs])
+    out["tokens_per_s"] = out["tokens"] / wall
+    if [len(g) for g in out["generated"]] != [ZOO_NEW_TOKENS] * len(prompts):
+        raise AssertionError(f"generated {[len(g) for g in out['generated']]} tokens")
+    if profile:
+        toks = np.array([[g[-1]] for g in out["generated"][:ZOO_SLOTS]], np.int32)
+        pos = np.full((ZOO_SLOTS,), max(ZOO_PROMPTS), np.int32)
+        cache = eng.adapter.init_cache(ZOO_SLOTS, eng.ecfg.max_len)
+        out["decode_device"] = profile_steps(lambda: decode(toks, pos, cache))
+    return out
+
+
+def profile_steps(fn, steps=1, top=12):
+    """``steps`` calls of ``fn`` under ``torch.profiler`` after a profiled
+    warm-up call that the trace discards: ``(device ms per call, [(kernel,
+    ms, calls) per call])``, or None when the profiler recorded no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()  # the active step ends with the context
+    rows = device_rows(prof, steps)
+    if not rows:
+        return None
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def _zoo_compare(what, got, want, vocab):
+    """Card logits against the CPU's within ZOO_TOL over the ``vocab`` real
+    columns (the padded tail, masked to -1e30, must be equal); returns (max
+    |Δ| / max(1, max |CPU|), clear rows, clear rows with equal tokens)."""
+    import torch
+
+    got, want = got.float().cpu(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: card logits {tuple(got.shape)} or non-finite values")
+    if not torch.equal(got[:, vocab:], want[:, vocab:]):
+        raise AssertionError(f"{what}: the padded vocab tail differs")
+    got, want = got[:, :vocab], want[:, :vocab]
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max()) / scale
+    if err > ZOO_TOL:
+        raise AssertionError(f"{what}: card and CPU logits differ by {err:.3g} · max(1, max |CPU|) "
+                             f"> {ZOO_TOL}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 10 * ZOO_TOL * scale
+    same = got.argmax(-1) == want.argmax(-1)
+    if bool((clear & ~same).any()):
+        raise AssertionError(f"{what}: the card's greedy token differs where the CPU's is clear")
+    return err, int(clear.sum()), int((clear & same).sum())
+
+
+def card_vs_cpu(params, cfg, batch, steps, w8a8, device):
+    """Prefill ``batch`` and ``steps`` greedy decode steps on the card and on
+    the CPU from the same weights (W8A8-converted on each device when
+    ``w8a8``; the conversions must agree bit for bit), every step fed the
+    CPU's greedy token; returns each step's (err, clear, equal)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.convert import convert_params_w8a8
+    from repro_torch.models import model as M
+
+    cpu = M.tree_map(lambda _, a: a.cpu(), params)
+    if w8a8:
+        params, cpu = convert_params_w8a8(params), convert_params_w8a8(cpu)
+        for (path, a), (_, b) in zip(_leaves(params), _leaves(cpu)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"W8A8 conversion of {path} differs between the card and the CPU")
+    b, s = batch["tokens"].shape
+    if "patch_embeds" in batch:  # the patches precede the text
+        s += batch["patch_embeds"].shape[1]
+    src = batch["src_embeds"].shape[1] if "src_embeds" in batch else 0
+    kw = dict(compute_dtype=torch.float32, q_chunk=min(s, 512), kv_chunk=min(s, 512))
+    caches = {d: M.init_cache(cfg, b, s + steps + 1, src, device=d) for d in (device, "cpu")}
+    got, caches[device] = M.prefill(params, batch, cfg, caches[device], **kw)
+    want, caches["cpu"] = M.prefill(cpu, batch, cfg, caches["cpu"], **kw)
+    out = [_zoo_compare("prefill", got, want, cfg.vocab_size)]
+    for i in range(steps):
+        tok = want.argmax(-1)[:, None].to(torch.int32).numpy()
+        pos = np.full((b,), s + i, np.int32)
+        got, caches[device] = M.decode_step(params, tok, pos, caches[device], cfg,
+                                            compute_dtype=torch.float32)
+        want, caches["cpu"] = M.decode_step(cpu, tok, pos, caches["cpu"], cfg,
+                                            compute_dtype=torch.float32)
+        out.append(_zoo_compare(f"decode step {i}", got, want, cfg.vocab_size))
+    return out
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def zoo_batch(cfg, rng, b, s):
+    """A batch as ``tests/test_w8a8.py::_batch`` builds one: text tokens,
+    with patch embeddings (vision) or source-frame embeddings (enc-dec)."""
+    import numpy as np
+
+    tok = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    batch = {"tokens": tok}
+    if cfg.frontend == "vision":
+        batch["tokens"] = tok[:, : s - cfg.frontend_tokens]
+        batch["patch_embeds"] = rng.normal(size=(b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def run_zoo(device, card):
+    """Phase 9: (a) qwen3_1_7b at its full config served in three postures
+    by ServeEngine's default adapter; (b) its weights cut to 2 layers, card
+    against CPU; (c) every other architecture at reduced() on the card
+    against the CPU; (d) QuantizedLinear on the qmatmul kernel against ref.
+    Returns the phase's record and the launches of its served runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.convert import convert_params_w8a8
+    from repro_torch.core.qlayers import prepare_quantized_linear
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model as M
+
+    rec = {}
+    cfg = get_config("qwen3_1_7b")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t = time.perf_counter()
+    params = M.init_params(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for _, a in _leaves(params))
+    log(f"  (a) {cfg.name} full config: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads ({cfg.n_kv_heads} kv) of {cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded "
+        f"to {M.padded_vocab(cfg)}: {n_params:,} parameters, float32 masters initialised on the card "
+        f"in {time.perf_counter() - t:.1f} s; compute float32 (the engine's default)")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32) for n in ZOO_PROMPTS]
+    postures, base = {}, None
+    for name, (kv, w8a8) in ZOO_POSTURES.items():
+        pcfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        p = convert_params_w8a8(params) if w8a8 else params
+        res = serve_posture(p, pcfg, prompts, profile=name == "bf16/bf16-kv")
+        del p
+        torch.cuda.empty_cache()
+        gen = res.pop("generated")
+        base = base or gen
+        # as examples/serve_quantized.py prints it: per request, the share of
+        # positions where the posture's token equals the baseline's
+        res["agreement"] = float(np.mean([np.mean([a == b for a, b in zip(x, y)])
+                                          for x, y in zip(gen, base)]))
+        postures[name] = res
+        log(f"    {name:13s} {res['tokens_per_s']:8.1f} tokens/s ({res['tokens']} tokens in "
+            f"{res['wall_s']:.2f} s); prefill {res['prefill_ms']:.2f} ms, decode step "
+            f"{res['decode_step_ms']:.2f} ms (medians, {res['decode_steps']} steps of "
+            f"{ZOO_SLOTS} slots); peak {(res['peak_bytes'] - before) / 2**30:.2f} GiB over the "
+            f"{(res['resident_bytes'] - before) / 2**30:.2f} GiB it holds at rest; vs bf16/bf16-kv token "
+            f"agreement {res['agreement']:.1%}; prefill cache {res['metrics']['prefill_cache_size']} "
+            f"buckets, {res['metrics']['prefill_cache_hits']} hits  ({card})")
+        if any(res["launches"].values()):
+            raise AssertionError(f"{name}: the zoo's path launched {res['launches']}")
+    prof = postures["bf16/bf16-kv"]["decode_device"]
+    if prof is None:
+        log("    bf16/bf16-kv decode step device time by kernel: not measured (no device time)")
+    else:
+        total, top = prof
+        step = postures["bf16/bf16-kv"]["decode_step_ms"]
+        postures["bf16/bf16-kv"]["idle_share"] = 1 - total / step
+        log(f"    one bf16/bf16-kv decode step of {ZOO_SLOTS} slots (torch.profiler, after a "
+            f"discarded warm-up step): {total:.4f} ms of device time against the {step:.4f} ms "
+            f"step (median, unprofiled): the card idles {100 * (1 - total / step):.1f} %; by kernel:")
+        for key, ms, calls in top:
+            log(f"      {ms:9.4f} ms  x{calls:<4g} {key[:90]}")
+    rec["full"] = dict(n_params=n_params, postures=postures, earlier_phases_bytes=before)
+
+    # (b) the same weights, 2 of 28 layers, card against the CPU
+    cut = dataclasses.replace(cfg, n_layers=ZOO_CUT_LAYERS)
+    p2 = {**params, "layers": M.tree_map(lambda _, a: a[:ZOO_CUT_LAYERS].clone(), params["layers"])}
+    del params
+    torch.cuda.empty_cache()
+    batch = zoo_batch(cut, np.random.default_rng(2), 2, 24)
+    rec["cut"] = {}
+    for name in ("bf16/bf16-kv", "w8a8/int8-kv"):
+        kv, w8a8 = ZOO_POSTURES[name]
+        t = time.perf_counter()
+        steps = card_vs_cpu(p2, dataclasses.replace(cut, kv_cache_dtype=kv), batch,
+                            ZOO_DECODE_STEPS, w8a8, device)
+        rec["cut"][name] = steps
+        log(f"  (b) {cfg.name}, {ZOO_CUT_LAYERS} of 28 layers at full widths, {name}: prefill + "
+            f"{ZOO_DECODE_STEPS} decode steps, card vs CPU max |Δ| / max(1, max |CPU|) "
+            f"{max(e for e, _, _ in steps):.3g} (≤ {ZOO_TOL}); greedy tokens equal at "
+            f"{sum(q for _, _, q in steps)} of {sum(c for _, c, _ in steps)} clear rows "
+            f"({time.perf_counter() - t:.1f} s)")
+    del p2
+    torch.cuda.empty_cache()
+
+    # (c) every other architecture at reduced(), card against the CPU
+    rec["reduced"] = {}
+    for i, arch in enumerate(a for a in ARCH_IDS if a != cfg.name):
+        rcfg = get_config(arch, reduced=True)
+        params = M.init_params(torch.Generator(device=device).manual_seed(i), rcfg, device=device)
+        batch = zoo_batch(rcfg, np.random.default_rng(3 + i), 2, 16)
+        for name in ("bf16/bf16-kv", "w8a8/int8-kv"):
+            kv, w8a8 = ZOO_POSTURES[name]
+            rec["reduced"][f"{arch} {name}"] = card_vs_cpu(
+                params, dataclasses.replace(rcfg, kv_cache_dtype=kv), batch, ZOO_REDUCED_STEPS,
+                w8a8, device)
+    worst = max(e for steps in rec["reduced"].values() for e, _, _ in steps)
+    log(f"  (c) {len(ARCH_IDS) - 1} other architectures at reduced(), bf16/bf16-kv and "
+        f"w8a8/int8-kv: prefill + {ZOO_REDUCED_STEPS} decode steps, card vs CPU max |Δ| / max(1, "
+        f"max |CPU|) {worst:.3g} (≤ {ZOO_TOL}); greedy tokens equal at "
+        f"{sum(q for s in rec['reduced'].values() for _, _, q in s)} of "
+        f"{sum(c for s in rec['reduced'].values() for _, c, _ in s)} clear rows")
+
+    # (d) QuantizedLinear on the qmatmul kernel
+    rng = np.random.default_rng(4)
+    w = rng.normal(scale=0.02, size=(2048, 6144)).astype(np.float32)
+    bias = rng.normal(scale=0.1, size=(6144,)).astype(np.float32)
+    ql = prepare_quantized_linear(w, bias, 0.05, 0.1, device=device)
+    xs = {m: torch.from_numpy(_int8(rng, (m, 2048))).to(device) for m in ZOO_QLINEAR_M}
+    reset_launch_counts()
+    got = {m: ql(x, backend="cuda") for m, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    rec["qlinear"] = []
+    for m, x in xs.items():
+        want = ql(x, backend="ref")
+        if not torch.equal(got[m], want):
+            raise AssertionError(f"QuantizedLinear M={m}: backend cuda differs from ref")
+        row = dict(m=m, ms=time_ms(lambda: ql(x, backend="cuda"), flush),
+                   ref_ms=time_ms(lambda: ql(x, backend="ref"), flush))
+        rec["qlinear"].append(row)
+    if launches["qmatmul"] < len(ZOO_QLINEAR_M):
+        raise AssertionError(f"QuantizedLinear(backend='cuda') launched qmatmul {launches['qmatmul']} "
+                             f"times for {len(ZOO_QLINEAR_M)} calls")
+    times = "; ".join("M={m}: cuda {ms:.4f} ms, ref {ref_ms:.4f} ms".format(**r) for r in rec["qlinear"])
+    log(f"  (d) QuantizedLinear 2048 -> 6144, backend cuda == ref bit for bit at M = "
+        f"{', '.join(map(str, ZOO_QLINEAR_M))}; {launches['qmatmul']} qmatmul launches; {times} "
+        f"(median of {REPS}, L2 flushed; the weight is laid out on every call)  ({card})")
+    return rec, launches
+
+
 def lut_row(rows, worst, launches):
     """The kernels-line row of qact_lut, which runs by two routes: on the
     main path as the table in the qmatmul epilogue (slice A's Tanh layer
@@ -1702,23 +2062,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/9] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/10] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/9] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/10] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/9] kernels against their plain versions (tolerance 0)")
+    log("[3/10] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/9] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    log(f"[4/10] token path: compiled token path, backend cuda vs backend ref  ({card})")
     perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
@@ -1736,12 +2096,12 @@ def main() -> int:
             f"{100 * (1 - total / perf['decode_step_ms']):.1f} % of the step; copies of per-head "
             f"q/k/v views: {perf['decode_head_view_copies']}; by kernel:")
         for key, ms, calls in top:
-            log(f"    {ms:9.4f} ms  x{calls:<4d} {key[:90]}")
+            log(f"    {ms:9.4f} ms  x{calls:<4g} {key[:90]}")
     missing = [k for k in ("qmatmul", "qmatmul_packed", "qattention") if launches_tok[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/9] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/10] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -1754,7 +2114,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/9] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/10] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -1767,7 +2127,7 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
-    log(f"[7/9] autotune: the token path tuned on the card (cold, then warm from the tile "
+    log(f"[7/10] autotune: the token path tuned on the card (cold, then warm from the tile "
         f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
         f"server's background; every output against the ref backend  ({card})")
     tuning, launches_tune = run_tuning(device, ref, card)
@@ -1775,7 +2135,7 @@ def main() -> int:
         f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
         f"candidates measured between batches included: {tuning['slice_a']['launches']}")
 
-    log(f"[8/9] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
+    log(f"[8/10] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
         f"by {FLEET_REPLICAS} replicas warm-started from its artifact behind a ShardedRouter, one "
         f"replica failing; phase 4's decode checkpointed through a crash; the generic pooling ops  "
         f"({card})")
@@ -1792,8 +2152,18 @@ def main() -> int:
         f"{launches_8['qmatmul_packed']}, qattention {launches_8['qattention']}; phase 8 took "
         f"{time.perf_counter() - t:.1f} s  ({card})")
 
+    log(f"[9/10] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
+        f"adapter in three postures; its weights cut to {ZOO_CUT_LAYERS} layers and every other "
+        f"architecture at reduced() on the card against the CPU; QuantizedLinear on the qmatmul "
+        f"kernel  ({card})")
+    t = time.perf_counter()
+    zoo, launches_zoo = run_zoo(device, card)
+    log(f"  launches in phase 9's served run (QuantizedLinear, backend cuda): {launches_zoo}; "
+        f"phase 9 took {time.perf_counter() - t:.1f} s")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
-                + launches_tune.get(k, 0) + launches_8.get(k, 0) for k in launches_tok}
+                + launches_tune.get(k, 0) + launches_8.get(k, 0) + launches_zoo.get(k, 0)
+                for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
     # at the decode shapes (qattention: one launch per head)
@@ -1828,9 +2198,10 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[9/9] summary: launches are summed over the served runs of phases 4-8 (phase 7: "
+    log("[10/10] summary: launches are summed over the served runs of phases 4-9 (phase 7: "
         "the tuned and the warm-started token path's drives, no tuning candidate; phase 8: "
-        "the fleet's rounds and failover wave and the resilient decode); "
+        "the fleet's rounds and failover wave and the resilient decode; phase 9: "
+        "QuantizedLinear on backend cuda); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
@@ -1846,10 +2217,10 @@ def main() -> int:
                    "n_layers": N_LAYERS, "rows": rows, "qmatmul_instances": instances,
                    "slice": perf, "slice_a": perf_a,
                    "slice_b": perf_b, "autotune": tuning, "fleet": fleet,
-                   "checkpoint": checkpoint, "pooling": pooling,
+                   "checkpoint": checkpoint, "pooling": pooling, "zoo": zoo,
                    "launches": {"token_path": launches_tok, "slice_a": launches_a,
                                 "slice_b": launches_b, "autotune": launches_tune,
-                                "fleet_and_checkpoints": launches_8},
+                                "fleet_and_checkpoints": launches_8, "zoo": launches_zoo},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

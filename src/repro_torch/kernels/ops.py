@@ -19,7 +19,9 @@ Handled here, once per template, so the kernels stay tile-pure:
   space, as ONNX pads a zero point of 0), so im2col pads with −128 there.
 
 Every array lands on the plan's device here, once; a bucket specialization
-only binds M and the row tile, sharing these tensors.
+only binds M and the row tile, sharing these tensors.  The one call without
+a plan, :func:`quantized_matmul` (the model zoo's ``QuantizedLinear``), lays
+its weight out the same way on each call.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from . import pack as _pack
 from . import qact_lut as _qact
 from . import qattention as _qatt
 from . import qmatmul as _qmm
+from . import ref as _ref
 
 
 def _round_up(x: int, m: int) -> int:
@@ -334,3 +337,62 @@ def quantized_conv2d_planned(
     out = _qmm.qmatmul(cols, w2, b2, qs2, qsh2, n=shape["n"], out_dtype=out_dtype,
                        relu=relu, two_mul=two_mul, bm=shape["bm"], splits=shape["splits"])
     return out.view(n_img, oh, ow, shape["n"]).permute(0, 3, 1, 2).contiguous()
+
+
+def bind_qmatmul_batch(shape: dict, batch: Optional[int]) -> dict:
+    """Single-axis sugar over :func:`bind_qmatmul_axes`: bind the implicit
+    batch axis only."""
+    return bind_qmatmul_axes(shape, {} if batch is None else {"N": int(batch)})
+
+
+def quantized_matmul(
+    x_q: torch.Tensor,  # (..., K) int8 or uint8
+    w_q: torch.Tensor,  # (K, N) int8
+    bias_q: Optional[torch.Tensor],  # (N,) int32
+    quant_scale,  # float, or (N,) tensor — integer values as float
+    quant_shift,  # float, or (N,) tensor — 2**-N
+    *,
+    out_dtype: torch.dtype = torch.int8,
+    relu: bool = False,
+    two_mul: bool = True,
+    backend: str = "ref",  # "ref" | "cuda"
+) -> torch.Tensor:
+    """Fused pre-quantized matmul over arbitrary leading dims, with no plan:
+    the entry point ``QuantizedLinear`` calls.
+
+    ``backend="ref"`` is the plain version (:func:`repro_torch.kernels.ref
+    .qmatmul_ref`); ``backend="cuda"`` lays the weight out as a template
+    would — K-contiguous and padded to the kernel's tiles, scales padded
+    with 1.0 — on each call and launches the qmatmul kernel (its plain
+    version for CPU tensors, as every wrapper does).  A uint8 input folds to
+    int8 first (``bias + 128·Σ_k W``, ``x − 128``)."""
+    if backend not in ("ref", "cuda"):
+        raise ValueError(f"unknown backend {backend!r}: the port's backends are 'ref' and 'cuda'")
+    k, n = w_q.shape
+    if x_q.shape[-1] != k:
+        raise ValueError(f"activation has K={x_q.shape[-1]}, the weight {tuple(w_q.shape)}")
+    dev = x_q.device
+    if x_q.dtype == torch.uint8:
+        corr = 128 * w_q.to(torch.int32).sum(dim=0, dtype=torch.int32)
+        bias_q = corr if bias_q is None else bias_q.to(torch.int32) + corr
+        x_q = shift_uint8(x_q)
+    qs = torch.as_tensor(quant_scale, dtype=torch.float32, device=dev)
+    qsh = torch.as_tensor(quant_shift, dtype=torch.float32, device=dev)
+    if backend == "ref":
+        return _ref.qmatmul_ref(x_q, w_q, bias_q, qs, qsh, out_dtype=out_dtype, relu=relu,
+                                two_mul=two_mul)
+    _, bk, bn = _qmm.choose_tiles(None, k, n)
+    kp, np_ = _round_up(k, bk), _round_up(n, bn)
+    w2 = torch.zeros((np_, kp), dtype=torch.int8, device=dev)
+    w2[:n, :k] = w_q.t()
+    b2 = torch.zeros((1, np_), dtype=torch.int32, device=dev)
+    if bias_q is not None:
+        b2[0, :n] = bias_q.reshape(-1)
+    qs2 = torch.ones((1, np_), dtype=torch.float32, device=dev)
+    qs2[0, :n] = qs.reshape(-1)
+    qsh2 = torch.ones((1, np_), dtype=torch.float32, device=dev)
+    qsh2[0, :n] = qsh.reshape(-1)
+    shape = bind_qmatmul_batch({"k": k, "n": n, "kp": kp, "np": np_, "bk": bk, "bn": bn,
+                                "layout": "nk", "lead": (None,)}, x_q.numel() // k)
+    return quantized_matmul_planned(x_q.contiguous(), w2, b2, qs2, qsh2, shape,
+                                    out_dtype=out_dtype, relu=relu, two_mul=two_mul)

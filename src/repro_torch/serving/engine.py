@@ -5,13 +5,19 @@
   so admission is a host-side decision — the decode step never re-plans).
 * Prefill runs per admitted request, right-padded to a bucket length, and
   its KV rows are scattered into the slot's region.
+* ``kv_cache_dtype="int8"`` serves with the paper's symmetric int8 cache.
 
 The engine core (queue, slot bookkeeping, sampling, metrics) is model-
 agnostic: all model execution goes through a *token-path adapter* with four
-methods — ``init_cache`` / ``prefill`` / ``decode`` / ``scatter``.  The one
-adapter so far is :class:`repro_torch.serving.token_path.CompiledTokenAdapter`
-(the PQ-IR lane, on the token path's device).  ``repro``'s default opaque
-model adapter waits for the port of ``models/``, so ``adapter=`` is required.
+methods — ``init_cache`` / ``prefill`` / ``decode`` / ``scatter``.  Two
+adapters exist:
+
+* :class:`OpaqueModelAdapter` (default) — ``repro_torch.models.model``
+  prefill/decode in eager PyTorch on the parameters' device, one prefill
+  closure per prompt bucket in a bounded :class:`PlanCache`;
+* :class:`repro_torch.serving.token_path.CompiledTokenAdapter` — the PQ-IR
+  lane: prefill and decode are compiled plans sharing one ``PlanCache``, the
+  KV cache is the plan's persistent int8 state slots.
 """
 from __future__ import annotations
 
@@ -23,7 +29,10 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..backend.plan import bucket_multiple
+from ..backend.plan import PlanCache, bucket_multiple
+from ..configs.base import ModelConfig
+from ..core.compile import resolve_device
+from ..models import model as M
 from ..obs import trace as _trace
 from ..obs.metrics import MetricsRegistry
 
@@ -50,6 +59,18 @@ class EngineConfig:
     temperature: float = 1.0  # sampling path only (greedy=False)
     top_k: int = 0  # 0 ⇒ sample the full vocab
     seed: int = 0  # host-side sampling rng seed
+    # resident prefill closures (LRU beyond); None = one per reachable
+    # prompt bucket (max_len // prefill_bucket)
+    prefill_cache_size: Optional[int] = None
+
+
+def _prefill_capacity(ecfg: "EngineConfig") -> int:
+    """Resolve the prefill-cache bound: explicit config wins, else one slot
+    per reachable prompt bucket (prompts are padded to multiples of
+    ``prefill_bucket`` and capped by ``max_len``)."""
+    if ecfg.prefill_cache_size is not None:
+        return ecfg.prefill_cache_size
+    return max(1, ecfg.max_len // ecfg.prefill_bucket)
 
 
 #: Module-level fallback sampler state: callers that don't thread an rng
@@ -94,29 +115,121 @@ def sample_token(
     return int(rng.choice(z.size, p=p))
 
 
+class OpaqueModelAdapter:
+    """The model zoo's token path behind the adapter seam: ``repro_torch.
+    models.model`` prefill and decode, eager, on the parameters' device.
+
+    The weights are cast to ``compute_dtype`` once, here (``repro`` casts
+    them on every traced call, which eager PyTorch would pay as a copy of
+    every weight every step); the f32 masters stay for the logits readout,
+    as ``repro``'s.  One prefill closure per prompt bucket lives in a
+    bounded :class:`PlanCache` (``scope="prefill"``), whose hit/miss/evict
+    counts surface in the engine metrics as ``repro``'s jitted-prefill
+    cache does.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, *, compute_dtype=torch.float32,
+                 prefill_cache_capacity: int = 8) -> None:
+        self.params = params
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        self.device = resolve_device(params["embed"]["table"].device)
+        self._cast = M.cast_params(params, compute_dtype)
+        self.prefill_cache: PlanCache = PlanCache(prefill_cache_capacity, scope="prefill")
+
+    def _decode(self, tokens, pos, cache):
+        return M.decode_step(self.params, tokens, pos, cache, self.cfg,
+                             compute_dtype=self.compute_dtype, cast=self._cast)
+
+    def init_cache(self, slots: int, max_len: int):
+        return M.init_cache(self.cfg, slots, max_len, device=self.device)
+
+    def _prefill_fn(self, plen: int):
+        fn = self.prefill_cache.get(plen)
+        if fn is None:
+            cfg, dt, cast = self.cfg, self.compute_dtype, self._cast
+
+            def fn(params, tokens, cache):
+                return M.prefill(params, {"tokens": tokens}, cfg, cache, compute_dtype=dt,
+                                 q_chunk=min(plen, 512), kv_chunk=min(plen, 512), cast=cast)
+
+            self.prefill_cache.put(plen, fn)
+        return fn
+
+    def prefill(self, padded: np.ndarray, plen: int, max_len: int):
+        """Run one right-padded prompt ``(1, bucket)``; returns the logits row
+        for the true last prompt token and the single-request KV cache."""
+        bucket = padded.shape[1]
+        pcache = M.init_cache(self.cfg, 1, max_len, device=self.device)
+        tokens = torch.as_tensor(padded, device=self.device)
+        logits, pcache = self._prefill_fn(bucket)(self.params, tokens, pcache)
+        return self._logits_at(padded, plen, logits, pcache)
+
+    def _logits_at(self, padded, plen, last_logits, pcache):
+        """Logits for the true last prompt token: a bucket longer than the
+        prompt re-decodes token ``plen - 1`` at its position."""
+        if plen == padded.shape[1]:
+            return last_logits[0], pcache
+        tok = torch.as_tensor(padded[:, plen - 1: plen], device=self.device)
+        pos = torch.full((1,), plen - 1, dtype=torch.int32, device=self.device)
+        logits, _ = self._decode(tok, pos, pcache)
+        return logits[0], pcache
+
+    def decode(self, toks: np.ndarray, pos: np.ndarray, cache):
+        """One batched decode step over all slots; positions are per-slot."""
+        return self._decode(torch.as_tensor(toks, device=self.device),
+                            torch.as_tensor(pos, device=self.device), cache)
+
+    def scatter(self, cache, slot: int, pcache):
+        """Write a prefilled single-request cache into one slot's region, in
+        place: the cache tensors belong to the engine (fresh outputs of the
+        last decode step, or of ``init_cache``)."""
+        def scat(path, dst):
+            src = pcache
+            for key in path:
+                src = src[key]
+            if dst.ndim == src.ndim and dst.shape[1:] == src.shape[1:] and src.shape[0] == 1:
+                dst[slot: slot + 1].copy_(src)
+            else:  # stacked layer dim first: (L, B, ...) — batch is axis 1
+                dst[:, slot: slot + 1].copy_(src)
+            return dst
+
+        return M.tree_map(scat, cache)
+
+
 class ServeEngine:
     def __init__(
         self,
+        params=None,
+        cfg: Optional[ModelConfig] = None,
         ecfg: Optional[EngineConfig] = None,
         *,
-        adapter=None,
+        compute_dtype=torch.float32,
         registry: Optional[MetricsRegistry] = None,
+        adapter=None,
     ) -> None:
         if ecfg is None:
             raise ValueError("ServeEngine requires an EngineConfig")
-        if adapter is None:
-            raise ValueError(
-                "ServeEngine needs adapter= (e.g. CompiledTokenAdapter): the opaque "
-                "model adapter is not ported yet"
-            )
         # cache length must cover the largest prefill bucket (same round-up-
         # to-multiple policy the compiled-model grid uses for sequence axes)
         ecfg = dataclasses.replace(
             ecfg, max_len=bucket_multiple(ecfg.max_len, ecfg.prefill_bucket)
         )
         self.ecfg = ecfg
+        if adapter is None:
+            if params is None or cfg is None:
+                raise ValueError(
+                    "ServeEngine needs either (params, cfg) for the default "
+                    "OpaqueModelAdapter or an explicit adapter="
+                )
+            adapter = OpaqueModelAdapter(
+                params, cfg, compute_dtype=compute_dtype,
+                prefill_cache_capacity=_prefill_capacity(ecfg),
+            )
         self.adapter = adapter
-        self.cfg = getattr(adapter, "cfg", None)
+        self.params = getattr(adapter, "params", params)
+        self.cfg = getattr(adapter, "cfg", cfg)
+        self.compute_dtype = compute_dtype
         self.queue: Deque[Request] = deque()
         self.active: Dict[int, Request] = {}  # slot -> request
         self.slot_pos = np.zeros((ecfg.slots,), np.int32)
@@ -124,9 +237,23 @@ class ServeEngine:
         self.slot_budget = np.zeros((ecfg.slots,), np.int32)
         self.cache = adapter.init_cache(ecfg.slots, ecfg.max_len)
         self._rng = np.random.default_rng(ecfg.seed)
-        # per-instance registry unless the caller injects a shared one
+        # per-instance registry unless the caller injects a shared one; the
+        # adapter's prefill cache (when it keeps one) publishes its canonical
+        # cache.prefill.* gauges, and the flat prefill_cache_* keys below are
+        # read-only aliases
         self.registry = registry if registry is not None else MetricsRegistry()
-        self.metrics = {"decode_steps": 0, "prefills": 0, "completed": 0}
+        self._prefill_cache: Optional[PlanCache] = getattr(adapter, "prefill_cache", None)
+        if self._prefill_cache is not None:
+            self._prefill_cache.attach_metrics(self.registry)
+        self.metrics = {
+            "decode_steps": 0,
+            "prefills": 0,
+            "completed": 0,
+            "prefill_cache_size": 0,
+            "prefill_cache_hits": 0,
+            "prefill_cache_evictions": 0,
+            "prefill_cache_hit_rate": 0.0,
+        }
 
     def _count(self, key: str, n: int = 1) -> None:
         """One accounting site: the flat alias dict and the canonical
@@ -169,6 +296,15 @@ class ServeEngine:
         req.generated = []
         self.queue.append(req)
 
+    def _sync_cache_metrics(self) -> None:
+        if self._prefill_cache is None:
+            return
+        stats = self._prefill_cache.stats
+        self.metrics["prefill_cache_size"] = stats["size"]
+        self.metrics["prefill_cache_hits"] = stats["hits"]
+        self.metrics["prefill_cache_evictions"] = stats["evictions"]
+        self.metrics["prefill_cache_hit_rate"] = stats["hit_rate"]
+
     def _admit(self) -> None:
         for slot in range(self.ecfg.slots):
             # a request whose budget is exhausted by the prefill token never
@@ -186,6 +322,7 @@ class ServeEngine:
                     first_logits, pcache = self.adapter.prefill(
                         padded, plen, self.ecfg.max_len
                     )
+                self._sync_cache_metrics()
                 tok = self._select(first_logits)
                 req.generated.append(tok)
                 req.t_first = time.monotonic()

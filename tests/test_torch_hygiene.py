@@ -24,6 +24,10 @@ import torch
 from repro_torch.core.compile import compile_model
 from repro_torch.core.pqir import GraphBuilder
 from repro_torch.backend.artifact import save_artifact
+from repro_torch.configs import get_config
+from repro_torch.kernels.ops import quantized_matmul
+from repro_torch.launch.serve import serve_demo
+from repro_torch.models.model import init_params, tree_map
 from repro_torch.serving.engine import EngineConfig, ServeEngine
 from repro_torch.serving.router import ShardedRouter
 from repro_torch.serving.token_path import CompiledTokenPath, TokenPathConfig
@@ -73,7 +77,12 @@ def test_source_imports_nothing_of_jax_or_repro(path):
 SLICE_MODULES = ["core/calibrate.py", "core/toolchain.py", "core/export.py",
                  "kernels/qact_lut.py", "kernels/ops.py", "serving/compiled.py",
                  "backend/cost.py", "backend/autotune.py", "backend/artifact.py",
-                 "checkpoint/ckpt.py", "serving/router.py"]
+                 "checkpoint/ckpt.py", "serving/router.py",
+                 "distributed/sharding.py", "models/__init__.py", "models/layers.py",
+                 "models/attention.py", "models/moe.py", "models/transformer.py",
+                 "models/rwkv6.py", "models/mamba2.py", "models/model.py",
+                 "core/convert.py", "core/qlayers.py", "serving/engine.py",
+                 "launch/__init__.py", "launch/serve.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -91,11 +100,12 @@ COPIES = sorted(
     + [f"core/{m}.py" for m in ("pqir", "quant", "patterns", "runtime", "cache", "calibrate",
                                 "toolchain", "export")]
     + ["kernels/pack.py", "distributed/fault_tolerance.py"]
+    + [str(p.relative_to(PORT)) for p in (PORT / "configs").glob("*.py")]
 )
 
 
 def test_the_copies_are_all_listed():
-    assert len(COPIES) == 20
+    assert len(COPIES) == 32
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -114,10 +124,28 @@ def _tiny_model():
     return gb.build(opset=17)
 
 
+class _CardTensor(torch.Tensor):
+    """A CPU tensor that reports the card as its device: parameters that an
+    entry point would have to run on the card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     path = str(tmp_path / "relu.json")
     save_artifact(compile_model(_tiny_model(), device="cpu", batch="dynamic"), path)
+    cfg = get_config("qwen3_1_7b", reduced=True)
+    card_params = tree_map(lambda _, a: a.as_subclass(_CardTensor),
+                           init_params(torch.Generator().manual_seed(0), cfg, device="cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_demo("qwen3_1_7b", requests=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(card_params, cfg, EngineConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         compile_model(_tiny_model())
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -140,4 +168,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="backend"):
         compile_model(_tiny_model(), device="cpu", backend="pallas")
     with pytest.raises(ValueError, match="adapter"):
-        ServeEngine(EngineConfig())
+        ServeEngine(ecfg=EngineConfig())
+    x, w = torch.zeros((2, 4), dtype=torch.int8), torch.zeros((4, 3), dtype=torch.int8)
+    with pytest.raises(ValueError, match="backend"):
+        quantized_matmul(x, w, None, 1.0, 1.0, backend="pallas")

@@ -104,7 +104,7 @@ def test_engine_matches_mirror_generation(tps):
     """Greedy generation through the port's engine == a hand-rolled loop of
     ``repro``'s jnp mirrors (the counterpart of
     ``tests/test_token_path.py::test_engine_matches_mirror_generation``)."""
-    eng = ServeEngine(EngineConfig(slots=1, max_len=16, prefill_bucket=8),
+    eng = ServeEngine(ecfg=EngineConfig(slots=1, max_len=16, prefill_bucket=8),
                       adapter=CompiledTokenAdapter(tps["cuda"]))
     prompt = np.array([5, 9, 2], np.int32)
     req = Request(uid=0, prompt=prompt, max_new_tokens=4)
