@@ -81,15 +81,30 @@ Drives the port's main path on one CUDA card and fails loudly:
    (c) every other architecture at ``reduced()`` the same way, 2 decode
    steps; (d) ``QuantizedLinear`` 2048 → 6144 at M = 4, 77, 512 on backend
    ``cuda`` (the qmatmul kernel) equal to ``ref`` bit for bit;
-10. summary — one JSON line of the kernels with their launch counts summed
-   over the served runs of phases 4–9, then the card line, then the
+10. training — (a) ``qwen3_1_7b`` at its full config trained by
+   ``repro_torch.launch.train.train`` on the card (float32 masters and
+   compute, TF32 off, remat ``nothing_saveable``, ``warmup_cosine``, batch
+   4 × seq 512) for 6 steps plain and 6 with QAT: per step loss, grad norm,
+   lr, host step ms, tokens/s and peak memory; one plain step profiled
+   (device ms by kernel, idle share); fails on a non-finite loss or any
+   hand-written kernel launch; (b) its weights cut to 2 layers: one grad
+   step (batch 2 × seq 128) plain and with QAT on the card and on the CPU
+   (loss within 1e-5 relative, gradients within 1e-3 · max(1, max |CPU|)),
+   the QAT codes of every weight equal, AdamW fed the CPU's gradients on
+   both devices within 1e-6 relative; (c) ``TestTrainLoop`` on the card at
+   ``reduced()`` (8 steps, resume to 10) and a CPU-written checkpoint
+   resumed on the card at step 5; (d) ``grad_compress`` over a one-rank
+   NCCL/gloo group on (b)'s gradients, card == CPU;
+11. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–10, then the card line, then the
    ``{"ok": true, ...}`` line.
 
-Each of phases 4–9 zeroes the launch counters just before each counted run
+Each of phases 4–10 zeroes the launch counters just before each counted run
 and reads them just after; a kernel of that path launched no time fails
-(the zoo's served runs launch none of the hand-written kernels — they
-compute in plain PyTorch, as ``repro`` computes them in XLA — and must
-show none; its kernel is qmatmul under ``QuantizedLinear``).
+(the zoo's served runs and phase 10's training runs launch none of the
+hand-written kernels — they compute in plain PyTorch, as ``repro``
+computes them in XLA — and must show none; the zoo's kernel is qmatmul
+under ``QuantizedLinear``).
 Phase 7's served runs are the tuned and the warm-started token path's
 drives; phase 8's, the fleet's rounds, its failover wave and the resilient
 decode; the launches of the tuner's candidates (timed on synthetic inputs,
@@ -2001,6 +2016,321 @@ def run_zoo(device, card):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+#: (a): the full config trained by ``launch.train.train``: steps, batch, seq.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 512
+#: (b): the same weights cut to TRAIN_CUT_LAYERS layers, one grad step on
+#: the card and on the CPU at batch × seq.  Loss within TRAIN_LOSS_TOL
+#: relative; each gradient within ZOO_TOL · max(1, max |CPU|) (phase 9's
+#: bound, float32 sums in other orders); AdamW fed the CPU's gradients on
+#: both devices within TRAIN_ADAMW_TOL relative.
+TRAIN_CUT_LAYERS, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 2, 128
+TRAIN_LOSS_TOL, TRAIN_ADAMW_TOL = 1e-5, 1e-6
+#: (c): resume at reduced(), as tests/test_substrate.py::TestTrainLoop runs it.
+RESUME_KW = dict(batch=4, seq=32, log_every=100)
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+#: The H100 SXM's float32 peak outside the tensor cores (data sheet, dense,
+#: at 700 W): (a) runs float32 with TF32 off, so its GEMMs run there.
+F32_PEAK_FLOPS = 67e12
+
+
+def train_step_flops(cfg, batch, seq):
+    """Matmul FLOPs of one training step of a decoder ``cfg`` (GQA, gated
+    MLP, tied readout): the forward's 2 · weights · tokens over every layer
+    projection and the readout over the padded vocab, plus 4 · B · H · S² ·
+    dh of attention a layer (one query and one key chunk: every score is
+    computed, the causal mask applied after); the backward twice the
+    forward; and ``nothing_saveable``'s second forward of every layer."""
+    from repro_torch.models.model import padded_vocab
+
+    d, hd, tokens = cfg.d_model, cfg.hd(), batch * seq
+    weights = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * cfg.d_ff
+    layer = 2 * weights * tokens + 4 * batch * cfg.n_heads * seq * seq * hd
+    forward = cfg.n_layers * layer + 2 * d * padded_vocab(cfg) * tokens
+    return 3 * forward + cfg.n_layers * layer
+
+
+def _finite(x, what):
+    import math
+
+    if not math.isfinite(float(x)):
+        raise AssertionError(f"{what}: non-finite value {float(x)}")
+
+
+def train_full(device, card, qat):
+    """(a): ``train(qwen3_1_7b, reduced=False)`` on the card, per step loss,
+    grad norm, lr, host step ms, tokens/s and peak memory; returns the run's
+    record and its (params, opt) for the profiled step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+
+    steps = []
+
+    def on_step(step, m):
+        steps.append(dict(step=step, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          lr=float(m["lr"]), step_ms=m["step_time_s"] * 1e3,
+                          tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / m["step_time_s"],
+                          peak_bytes=torch.cuda.max_memory_allocated()))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    params, opt, _ = train("qwen3_1_7b", steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           reduced=False, qat=qat, schedule="warmup_cosine", seed=0,
+                           log_every=TRAIN_STEPS, device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"training launched hand-written kernels: {launches}")
+    for s in steps:
+        _finite(s["loss"], f"step {s['step']} loss")
+        _finite(s["grad_norm"], f"step {s['step']} grad norm")
+    rest = torch.cuda.memory_allocated()
+    rec = dict(qat=qat, steps=steps, wall_s=wall, earlier_phases_bytes=before,
+               resident_bytes=rest - before, peak_bytes=torch.cuda.max_memory_allocated() - before,
+               median_step_ms=_median([s["step_ms"] for s in steps[1:]]), launches=launches)
+    rec["median_tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / rec["median_step_ms"] * 1e3
+    rec["step_flops"] = train_step_flops(get_config("qwen3_1_7b"), TRAIN_BATCH, TRAIN_SEQ)
+    rec["bound_ms"] = rec["step_flops"] / F32_PEAK_FLOPS * 1e3  # the fake-quant's elementwise work aside
+    rec["achieved_tflops"] = rec["step_flops"] / rec["median_step_ms"] / 1e9
+    if torch.cuda.max_memory_allocated() >= torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError("training's peak memory exceeds the card")
+    name = "qat" if qat else "plain"
+    for s in steps:
+        log(f"    {name:5s} step {s['step']}: loss {s['loss']:.4f}, grad norm {s['grad_norm']:.4f}, lr "
+            f"{s['lr']:.3e}; {s['step_ms']:.1f} ms, {s['tokens_per_s']:.0f} tokens/s; peak "
+            f"{(s['peak_bytes'] - before) / 2**30:.2f} GiB over earlier phases  ({card})")
+    log(f"    {name:5s} median step (steps 1-{TRAIN_STEPS - 1}) {rec['median_step_ms']:.1f} ms = "
+        f"{rec['median_tokens_per_s']:.0f} tokens/s, {rec['step_flops']:.3e} matmul FLOP a step: "
+        f"{rec['achieved_tflops']:.1f} TFLOP/s, {rec['bound_ms']:.1f} ms at the float32 peak "
+        f"({100 * rec['bound_ms'] / rec['median_step_ms']:.1f} % of it); params + AdamW moments held at rest "
+        f"{rec['resident_bytes'] / 2**30:.2f} GiB, peak {rec['peak_bytes'] / 2**30:.2f} GiB over "
+        f"earlier phases ({before / 2**30:.2f} GiB); {TRAIN_STEPS} steps in {wall:.1f} s; "
+        f"hand-written kernel launches: 0  ({card})")
+    return rec, params, opt
+
+
+def profile_train_step(params, opt, device, step_ms):
+    """One plain training step of (a)'s shape under ``torch.profiler`` after
+    a discarded warm-up step, on (a)'s trained weights."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch.steps import make_train_step
+
+    cfg = get_config("qwen3_1_7b")
+    step = make_train_step(cfg, ShapeConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH),
+                           compute_dtype=torch.float32, q_chunk=TRAIN_SEQ, kv_chunk=TRAIN_SEQ,
+                           sched_kwargs=dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS))
+    data = Pipeline(cfg, DataConfig(seed=0)).batch(TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    prof = profile_steps(lambda: step(params, opt, batch), top=14)
+    if prof is None:
+        return None
+    total, top = prof
+    return dict(device_ms=total, step_ms=step_ms, idle_share=1 - total / step_ms, top=top)
+
+
+def train_card_vs_cpu(device, card):
+    """(b): the full config's weights cut to TRAIN_CUT_LAYERS layers (float32
+    masters from a seeded card generator, copied to the CPU): one grad step
+    plain and with QAT on both devices, the QAT codes of every weight, and
+    AdamW fed the CPU's gradients on both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.qat import weight_codes_per_channel
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"), n_layers=TRAIN_CUT_LAYERS)
+    params = M.init_params(torch.Generator(device=device).manual_seed(1), cfg, device=device)
+    cpu = M.tree_map(lambda _, a: a.cpu(), params)
+    rng = np.random.default_rng(5)
+    tok = rng.integers(0, cfg.vocab_size, (TRAIN_CUT_BATCH, TRAIN_CUT_SEQ)).astype(np.int32)
+    batch = {"tokens": tok, "labels": tok}
+    sc = ShapeConfig("custom", "train", TRAIN_CUT_SEQ, TRAIN_CUT_BATCH)
+    kw = dict(compute_dtype=torch.float32, q_chunk=TRAIN_CUT_SEQ, kv_chunk=TRAIN_CUT_SEQ)
+    rec = {}
+    for qat in (False, True):
+        name = "qat" if qat else "plain"
+        step = make_grad_step(cfg, sc, qat=qat, **kw)
+        t = time.perf_counter()
+        l_card, g_card = step(params, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t
+        t = time.perf_counter()
+        l_cpu, g_cpu = step(cpu, batch)
+        t_cpu = time.perf_counter() - t
+        loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        if loss_err > TRAIN_LOSS_TOL:
+            raise AssertionError(f"(b) {name}: card loss {float(l_card)} vs CPU {float(l_cpu)}")
+        worst = 0.0
+        for (path, a), (_, b) in zip(_leaves(g_card), _leaves(g_cpu)):
+            err = float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+            if not (err <= ZOO_TOL):
+                raise AssertionError(f"(b) {name}: gradient {path} differs card vs CPU by {err:.3g}")
+            worst = max(worst, err)
+        rec[name] = dict(loss_card=float(l_card), loss_cpu=float(l_cpu), loss_rel_err=loss_err,
+                         grad_err=worst, card_s=t_card, cpu_s=t_cpu)
+        log(f"  (b) {name:5s} grad step, {TRAIN_CUT_LAYERS} of 28 layers at full widths, batch "
+            f"{TRAIN_CUT_BATCH} x seq {TRAIN_CUT_SEQ}: loss {float(l_card):.6f} card vs {float(l_cpu):.6f} "
+            f"CPU (rel {loss_err:.2e} <= {TRAIN_LOSS_TOL}); gradients max |d| / max(1, max |CPU|) "
+            f"{worst:.3g} (<= {ZOO_TOL}); card {t_card:.2f} s, CPU {t_cpu:.2f} s  ({card})")
+        if not qat:
+            g_plain_cpu = g_cpu
+        del g_card
+    # the QAT fake-quant codes of every weight, card == CPU (the div127 trap)
+    n_codes = 0
+    for (path, a), (_, b) in zip(_leaves(params), _leaves(cpu)):
+        if a.ndim >= 2 and path[-1] != "router":
+            qa, sa = weight_codes_per_channel(a)
+            qb, sb = weight_codes_per_channel(b)
+            if not (torch.equal(qa.cpu(), qb) and torch.equal(sa.cpu(), sb)):
+                raise AssertionError(f"(b) QAT codes of {path} differ card vs CPU")
+            n_codes += qa.numel()
+    # AdamW fed the CPU's gradients on both devices, from a fresh state
+    lr = 1e-3
+    opt_cpu = adamw.init(cpu)
+    new_cpu, st_cpu, m_cpu = adamw.update(g_plain_cpu, opt_cpu, cpu, torch.tensor(lr))
+    g_dev = M.tree_map(lambda _, a: a.to(device), g_plain_cpu)
+    new_card, st_card, m_card = adamw.update(g_dev, adamw.init(params), params,
+                                             torch.tensor(lr, device=device))
+    adam_err = 0.0
+    for got_tree, want_tree in ((new_card, new_cpu), (st_card["m"], st_cpu["m"]), (st_card["v"], st_cpu["v"])):
+        for (path, a), (_, b) in zip(_leaves(got_tree), _leaves(want_tree)):
+            err = float((a.cpu() - b).abs().max()) / max(1e-30, float(b.abs().max()))
+            if not (err <= TRAIN_ADAMW_TOL):
+                raise AssertionError(f"(b) AdamW {path} differs card vs CPU by {err:.3g} relative")
+            adam_err = max(adam_err, err)
+    gn_err = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) / float(m_cpu["grad_norm"])
+    rec.update(qat_codes=n_codes, adamw_rel_err=adam_err, grad_norm_rel_err=gn_err)
+    log(f"  (b) QAT fake-quant codes of every weight equal card vs CPU ({n_codes:,} codes); AdamW fed "
+        f"the CPU's gradients: params and moments within {adam_err:.3g} relative (<= {TRAIN_ADAMW_TOL}), "
+        f"grad norm {gn_err:.2e}  ({card})")
+    return rec, g_plain_cpu
+
+
+def train_resume(device, card):
+    """(c): TestTrainLoop on the card at reduced(), then a checkpoint the
+    CPU wrote resumed on the card."""
+    from repro_torch.launch.train import train
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    try:
+        d = os.path.join(TRAIN_DIR, "card")
+        _, opt, hist = train("qwen3_1_7b", steps=8, ckpt_dir=d, ckpt_interval=4, device=device, **RESUME_KW)
+        if not hist[-1] < hist[0]:
+            raise AssertionError(f"(c) the loss did not decrease on the card: {hist}")
+        _, opt2, hist2 = train("qwen3_1_7b", steps=10, ckpt_dir=d, ckpt_interval=100, device=device,
+                               **RESUME_KW)
+        if len(hist2) != 5 or int(opt2["step"]) != 10 or opt2["step"].device.type != device.type:
+            raise AssertionError(f"(c) resume on the card ran {len(hist2)} steps to step {int(opt2['step'])}")
+        d = os.path.join(TRAIN_DIR, "cpu")
+        _, _, hist_cpu = train("qwen3_1_7b", steps=8, ckpt_dir=d, ckpt_interval=4, device="cpu", **RESUME_KW)
+        _, opt3, hist3 = train("qwen3_1_7b", steps=10, ckpt_dir=d, ckpt_interval=100, device=device,
+                               **RESUME_KW)
+        if len(hist3) != 5 or int(opt3["step"]) != 10:
+            raise AssertionError(f"(c) the CPU's checkpoint resumed on the card ran {len(hist3)} steps")
+        err = abs(hist3[0] - hist_cpu[5]) / abs(hist_cpu[5])
+        if err > TRAIN_LOSS_TOL:
+            raise AssertionError(f"(c) step 5 on the card from the CPU's checkpoint: loss {hist3[0]} vs the "
+                                 f"CPU's {hist_cpu[5]}")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    log(f"  (c) reduced(): 8 steps on the card, loss {hist[0]:.4f} -> {hist[-1]:.4f}; resumed from step 4 "
+        f"to 10 (5 steps, opt step 10); the CPU's step-4 checkpoint resumed on the card: step 5 loss "
+        f"{hist3[0]:.6f} vs the CPU's {hist_cpu[5]:.6f} (rel {err:.2e})  ({card})")
+    return dict(card=hist, resumed=hist2, cpu=hist_cpu, cpu_resumed_on_card=hist3, step5_rel_err=err)
+
+
+def train_grad_compress(device, grads_cpu, card):
+    """(d): ``compressed_cross_pod_mean`` over a single-process group (NCCL
+    for the card, gloo for the CPU; a file store) on (b)'s CPU gradients,
+    two rounds: averages and residuals equal card vs CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import model as M
+    from repro_torch.optim import grad_compress as gc
+
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    store = os.path.join(TRAIN_DIR, "store")
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        res = {"cpu": gc.init_residuals(grads_cpu)}
+        g_dev = M.tree_map(lambda _, a: a.to(device), grads_cpu)
+        res["card"] = gc.init_residuals(g_dev)
+        n = 0
+        for _ in range(2):
+            avg_cpu, res["cpu"] = gc.compressed_cross_pod_mean(grads_cpu, res["cpu"])
+            avg_card, res["card"] = gc.compressed_cross_pod_mean(g_dev, res["card"])
+            torch.cuda.synchronize()
+            for got_tree, want_tree in ((avg_card, avg_cpu), (res["card"], res["cpu"])):
+                for (path, a), (_, b) in zip(_leaves(got_tree), _leaves(want_tree)):
+                    if not torch.equal(a.cpu(), b):
+                        raise AssertionError(f"(d) grad_compress {path} differs card vs CPU")
+                    n += a.numel()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    log(f"  (d) grad_compress over a one-rank group (NCCL on the card, gloo on the CPU), 2 rounds on (b)'s "
+        f"gradients: averages and residuals equal card vs CPU ({n:,} values)  ({card})")
+    return dict(values=n)
+
+
+def run_training(device, card):
+    """Phase 10: (a) qwen3_1_7b at its full config trained on the card, plain
+    and with QAT, and one profiled step; (b) card vs CPU on its weights cut
+    to 2 layers; (c) resume; (d) grad_compress.  Returns the phase's record
+    and the launches of its training runs (none may launch a kernel)."""
+    import torch
+
+    rec = {}
+    log(f"  (a) qwen3_1_7b full config, float32 masters and compute (TF32 off), remat nothing_saveable, "
+        f"warmup_cosine, batch {TRAIN_BATCH} x seq {TRAIN_SEQ} ({TRAIN_BATCH * TRAIN_SEQ} tokens a step), "
+        f"{TRAIN_STEPS} steps through repro_torch.launch.train.train")
+    rec["plain"], params, opt = train_full(device, card, qat=False)
+    rec["profile"] = profile_train_step(params, opt, device, rec["plain"]["median_step_ms"])
+    if rec["profile"] is None:
+        log("    one training step device time by kernel: not measured (no device time)")
+    else:
+        p = rec["profile"]
+        log(f"    one plain training step (torch.profiler, after a discarded warm-up step): "
+            f"{p['device_ms']:.1f} ms of device time against the {p['step_ms']:.1f} ms step (median, "
+            f"unprofiled): the card idles {100 * p['idle_share']:.1f} %; by kernel  ({card}):")
+        for key, ms, calls in p["top"]:
+            log(f"      {ms:10.3f} ms  x{calls:<5g} {key[:90]}")
+    del params, opt
+    torch.cuda.empty_cache()
+    rec["qat"], params, opt = train_full(device, card, qat=True)
+    del params, opt
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"], grads_cpu = train_card_vs_cpu(device, card)
+    torch.cuda.empty_cache()
+    rec["resume"] = train_resume(device, card)
+    rec["grad_compress"] = train_grad_compress(device, grads_cpu, card)
+    launches = {k: rec["plain"]["launches"][k] + rec["qat"]["launches"][k] for k in rec["plain"]["launches"]}
+    return rec, launches
+
+
 def lut_row(rows, worst, launches):
     """The kernels-line row of qact_lut, which runs by two routes: on the
     main path as the table in the qmatmul epilogue (slice A's Tanh layer
@@ -2062,23 +2392,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/10] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/11] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/10] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/11] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/10] kernels against their plain versions (tolerance 0)")
+    log("[3/11] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/10] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    log(f"[4/11] token path: compiled token path, backend cuda vs backend ref  ({card})")
     perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
@@ -2101,7 +2431,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/10] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/11] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -2114,7 +2444,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/10] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/11] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -2127,7 +2457,7 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
-    log(f"[7/10] autotune: the token path tuned on the card (cold, then warm from the tile "
+    log(f"[7/11] autotune: the token path tuned on the card (cold, then warm from the tile "
         f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
         f"server's background; every output against the ref backend  ({card})")
     tuning, launches_tune = run_tuning(device, ref, card)
@@ -2135,7 +2465,7 @@ def main() -> int:
         f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
         f"candidates measured between batches included: {tuning['slice_a']['launches']}")
 
-    log(f"[8/10] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
+    log(f"[8/11] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
         f"by {FLEET_REPLICAS} replicas warm-started from its artifact behind a ShardedRouter, one "
         f"replica failing; phase 4's decode checkpointed through a crash; the generic pooling ops  "
         f"({card})")
@@ -2152,7 +2482,7 @@ def main() -> int:
         f"{launches_8['qmatmul_packed']}, qattention {launches_8['qattention']}; phase 8 took "
         f"{time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[9/10] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
+    log(f"[9/11] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
         f"adapter in three postures; its weights cut to {ZOO_CUT_LAYERS} layers and every other "
         f"architecture at reduced() on the card against the CPU; QuantizedLinear on the qmatmul "
         f"kernel  ({card})")
@@ -2161,9 +2491,17 @@ def main() -> int:
     log(f"  launches in phase 9's served run (QuantizedLinear, backend cuda): {launches_zoo}; "
         f"phase 9 took {time.perf_counter() - t:.1f} s")
 
+    log(f"[10/11] training: qwen3_1_7b at its full config trained on the card by "
+        f"repro_torch.launch.train, plain and with QAT, one step profiled; its weights cut to "
+        f"{TRAIN_CUT_LAYERS} layers, card vs CPU; resume; grad_compress  ({card})")
+    t = time.perf_counter()
+    training, launches_train = run_training(device, card)
+    log(f"  launches in phase 10's training runs: {launches_train} (training computes in plain "
+        f"PyTorch, as repro trains in XLA); phase 10 took {time.perf_counter() - t:.1f} s  ({card})")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
                 + launches_tune.get(k, 0) + launches_8.get(k, 0) + launches_zoo.get(k, 0)
-                for k in launches_tok}
+                + launches_train.get(k, 0) for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
     # at the decode shapes (qattention: one launch per head)
@@ -2198,10 +2536,10 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[10/10] summary: launches are summed over the served runs of phases 4-9 (phase 7: "
+    log("[11/11] summary: launches are summed over the served runs of phases 4-10 (phase 7: "
         "the tuned and the warm-started token path's drives, no tuning candidate; phase 8: "
         "the fleet's rounds and failover wave and the resilient decode; phase 9: "
-        "QuantizedLinear on backend cuda); "
+        "QuantizedLinear on backend cuda; phase 10's training runs launch none); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
@@ -2217,10 +2555,11 @@ def main() -> int:
                    "n_layers": N_LAYERS, "rows": rows, "qmatmul_instances": instances,
                    "slice": perf, "slice_a": perf_a,
                    "slice_b": perf_b, "autotune": tuning, "fleet": fleet,
-                   "checkpoint": checkpoint, "pooling": pooling, "zoo": zoo,
+                   "checkpoint": checkpoint, "pooling": pooling, "zoo": zoo, "training": training,
                    "launches": {"token_path": launches_tok, "slice_a": launches_a,
                                 "slice_b": launches_b, "autotune": launches_tune,
-                                "fleet_and_checkpoints": launches_8, "zoo": launches_zoo},
+                                "fleet_and_checkpoints": launches_8, "zoo": launches_zoo,
+                                "training": launches_train},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

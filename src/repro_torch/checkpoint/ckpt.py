@@ -69,15 +69,21 @@ def _treedef_str(tree) -> str:
     return "*"
 
 
-def _unflatten(tree, leaves):
+def tree_leaves(tree) -> list:
+    """The leaves of a dict/list/tuple/None tree in JAX's pytree order (dict
+    keys sorted, ``None`` a node with no leaf)."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def tree_unflatten(tree, leaves):
     """A tree of ``tree``'s structure whose leaves are taken in order from
     the iterator ``leaves``."""
     if tree is None:
         return None
     if type(tree) is dict:
-        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+        return {k: tree_unflatten(tree[k], leaves) for k in sorted(tree)}
     if type(tree) in (list, tuple):
-        return type(tree)(_unflatten(c, leaves) for c in tree)
+        return type(tree)(tree_unflatten(c, leaves) for c in tree)
     return next(leaves)
 
 
@@ -193,4 +199,4 @@ def restore(
         for dev, t in zip(devices, targets)
     ]
     placed = [torch.from_numpy(leaf).to(dev) for leaf, dev in zip(leaves, devices)]
-    return _unflatten(target_tree, iter(placed)), step, manifest.get("extra", {})
+    return tree_unflatten(target_tree, iter(placed)), step, manifest.get("extra", {})

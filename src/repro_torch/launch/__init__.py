@@ -1,3 +1,4 @@
 """repro_torch.launch — the launchers: ``serve`` (batched generation with
-the continuous-batching engine).  Training, mesh and dry-run launchers come
-with the training slice of the port."""
+the continuous-batching engine), ``train`` (one-card training) and
+``steps`` (the step builders both share).  The mesh and dry-run launchers
+come with the port's mesh slice."""

@@ -3,6 +3,7 @@ hybrid), as in ``repro.models.model``:
 
     init_params(generator, cfg, dtype, device)   -> params tree (f32 masters)
     init_cache(cfg, batch, max_len, device=...)  -> serving cache tree
+    loss_fn(params, batch, cfg)                  -> (loss, metrics)   [train]
     prefill(params, batch, cfg, cache)           -> (last_logits, cache)
     decode_step(params, tokens, pos, cache, cfg) -> (logits, cache)
     param_logical_axes(params)                   -> logical-axes tree
@@ -10,8 +11,8 @@ hybrid), as in ``repro.models.model``:
 
 Parameters keep ``repro``'s tree exactly: the same nested dict keys and the
 same stacked leading dimensions, so ``repro``'s parameters and caches carry
-across as a tree map of their leaves (:func:`params_from_numpy`).  The
-training loss waits for the training slice of the port.
+across as a tree map of their leaves (:func:`params_from_numpy`), and so do the
+optimizer's moments (:func:`opt_state_from_numpy`).
 
 Modality frontends are stubs, as in ``repro``: batches carry precomputed
 frame/patch embeddings which are concatenated or consumed directly.
@@ -63,6 +64,13 @@ def params_from_numpy(tree, device=None):
     the card), the tree's shape kept."""
     dev = resolve_device(device)
     return tree_map(lambda _, a: _to_tensor(a, dev), tree)
+
+
+def opt_state_from_numpy(state, device=None):
+    """An AdamW state ``{"m", "v", "step"}`` of numpy arrays (``repro``'s,
+    through ``np.asarray`` on each leaf) as tensors on ``device`` (``None``:
+    the card); ``step`` stays a 0-d int32 tensor."""
+    return params_from_numpy(state, device)
 
 
 def cache_from_numpy(tree, device=None):
@@ -201,38 +209,44 @@ def _embed_inputs(params, batch: Dict, cfg: ModelConfig, compute_dtype):
 
 def _rwkv_stack(params, x, caches, cfg, mode):
     body = tfm._remat(rwkv6_block, cfg.remat_policy if mode == "train" else "none")
+    n = tfm.stack_len(params["layers"])
     states = []
-    for i in range(tfm.stack_len(params["layers"])):
-        p_l = tfm.tree_index(params["layers"], i)
+    for p_l, st_l in zip(tfm.tree_unbind(params["layers"], n), tfm.tree_unbind(caches["layers"], n)):
         x = shard(x, "batch", None, None)
-        x, st = body(p_l, x, tfm.tree_index(caches["layers"], i), cfg,
-                     {"ln1": p_l["ln1"], "ln2": p_l["ln2"]})
+        x, st = body(p_l, x, st_l, cfg, {"ln1": p_l["ln1"], "ln2": p_l["ln2"]})
         states.append(st)
     return x, {"layers": tfm.tree_stack(states)}, torch.zeros((), device=x.device)
 
 
 def _mamba_stack(x, p_stack, st_stack, cfg, mode):
     body = tfm._remat(mamba2_block, cfg.remat_policy if mode == "train" else "none")
+    n = tfm.stack_len(st_stack)
     states = []
-    for i in range(tfm.stack_len(st_stack)):
-        p_l = tfm.tree_index(p_stack, i)
-        x, st = body(p_l, shard(x, "batch", None, None), tfm.tree_index(st_stack, i), cfg, p_l["ln"])
+    for p_l, st_l in zip(tfm.tree_unbind(p_stack, n), tfm.tree_unbind(st_stack, n)):
+        x, st = body(p_l, shard(x, "batch", None, None), st_l, cfg, p_l["ln"])
         states.append(st)
     return x, tfm.tree_stack(states)
 
 
 def _hybrid_stack(params, x, pos, caches, cfg, mode, q_chunk, kv_chunk):
     hy = cfg.hybrid
-    aux = torch.zeros((), device=x.device)
-    m_list, kv_list = [], []
-    for i in range(hy.n_groups):
-        x, st = _mamba_stack(x, tfm.tree_index(params["mamba_groups"], i),
-                             tfm.tree_index(caches["mamba_groups"], i), cfg, mode)
+
+    def group_body(x, p_g, st_g, kv_g):
+        x, st = _mamba_stack(x, p_g, st_g, cfg, mode)
         x, kv, aux_l = tfm.decoder_block(
             params["shared_block"], x, pos, cfg,
-            window=0, cache=tfm.tree_index(caches.get("shared_kv"), i), mode=mode,
-            q_chunk=q_chunk, kv_chunk=kv_chunk,
+            window=0, cache=kv_g, mode=mode, q_chunk=q_chunk, kv_chunk=kv_chunk,
         )
+        return x, aux_l, st, kv
+
+    group_body = tfm._remat(group_body, cfg.remat_policy if mode == "train" else "none")
+    aux = torch.zeros((), device=x.device)
+    m_list, kv_list = [], []
+    n = hy.n_groups
+    for p_g, st_g, kv_g in zip(tfm.tree_unbind(params["mamba_groups"], n),
+                               tfm.tree_unbind(caches["mamba_groups"], n),
+                               tfm.tree_unbind(caches.get("shared_kv"), n)):
+        x, aux_l, st, kv = group_body(x, p_g, st_g, kv_g)
         aux = aux + aux_l
         m_list.append(st)
         kv_list.append(kv)
@@ -327,8 +341,43 @@ def _logits(params, x, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# serve entry points
+# train / serve entry points
 # ---------------------------------------------------------------------------
+
+
+def loss_fn(
+    params: dict,
+    batch: Dict,
+    cfg: ModelConfig,
+    *,
+    compute_dtype=torch.bfloat16,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy over the padded vocab + MoE aux, as
+    ``repro``'s.  The gold logit is a gather where ``repro`` contracts a
+    one-hot: both give the one logit exactly, and the gather builds no
+    (B, S, V) one-hot."""
+    x, _, aux = forward(
+        params, batch, cfg, mode="train",
+        compute_dtype=compute_dtype, q_chunk=q_chunk, kv_chunk=kv_chunk,
+    )
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        x = x[:, batch["patch_embeds"].shape[1]:]  # loss over text positions only
+    # next-token objective: position t predicts label t+1
+    labels = torch.as_tensor(batch["labels"], device=x.device).long()
+    labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)], dim=1)
+    logits = _logits(params, x, cfg)  # (B, S, V) f32
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    valid = labels >= 0
+    gold = torch.gather(logits, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    valid = valid.to(torch.float32)
+    nll = (lse - gold) * valid
+    tokens = valid.sum()
+    loss = nll.sum() / torch.clamp_min(tokens, 1.0)
+    total = loss + aux
+    return total, {"loss": loss, "aux_loss": aux, "tokens": tokens}
 
 
 def prefill(

@@ -10,10 +10,12 @@ window from :func:`layer_windows` — so one block body serves every arch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
 from ..distributed.sharding import shard
@@ -133,22 +135,49 @@ def layer_windows(cfg: ModelConfig, n_layers: int) -> np.ndarray:
     return np.zeros((n_layers,), np.int32)
 
 
+#: The matmul outputs the ``"dots"`` policy keeps, as ``jax.checkpoint_policies.
+#: checkpoint_dots`` keeps XLA's dot results.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, policy: str):
-    """The identity: rematerialization is a training concern, and training
-    comes with a later slice of the port."""
-    return fn
+    """``fn`` under ``repro``'s rematerialization ``policy``: ``"none"``
+    keeps every activation; ``"nothing_saveable"`` keeps only ``fn``'s
+    inputs and recomputes the rest in the backward; ``"dots"`` also keeps
+    the matmul outputs.  Recomputation repeats the same operations, so the
+    gradients equal those of ``"none"`` bit for bit."""
+    if policy == "none":
+        return fn
+    if policy == "nothing_saveable":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}")
 
 
-def tree_index(tree, i: int):
-    """Slice ``i`` of every leaf's leading dimension (views, no copy);
-    dicts, tuples and lists keep their shape, ``None`` stays ``None``."""
+def tree_unbind(tree, n: int) -> list:
+    """The ``n`` slices of the leading dimension of every leaf, as a list of
+    ``n`` trees of views; dicts, tuples and lists keep their shape, ``None``
+    stays ``None``.  ``torch.unbind``'s backward stacks the slices'
+    gradients once, where indexing one slice at a time would fill a zero
+    ``(L, ...)`` gradient for every slice."""
     if tree is None:
-        return None
+        return [None] * n
     if isinstance(tree, dict):
-        return {k: tree_index(v, i) for k, v in tree.items()}
+        parts = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_index(v, i) for v in tree)
-    return tree[i]
+        parts = [tree_unbind(v, n) for v in tree]
+        return [type(tree)(v[i] for v in parts) for i in range(n)]
+    if tree.shape[0] != n:
+        raise ValueError(f"a leaf of {tree.shape[0]} slices in a stack of {n}")
+    return list(torch.unbind(tree))
 
 
 def stack_len(tree) -> int:
@@ -188,11 +217,13 @@ def run_decoder_stack(
     block = _remat(decoder_block, cfg.remat_policy if mode == "train" else "none")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_list = []
-    for i in range(len(windows)):
+    n = len(windows)
+    for i, (p_l, c_l, x_kv) in enumerate(zip(tree_unbind(stacked, n), tree_unbind(caches, n),
+                                             tree_unbind(cross_kv, n))):
         x, c_new, aux_l = block(
-            tree_index(stacked, i), x, pos, cfg,
-            window=int(windows[i]), cache=tree_index(caches, i), mode=mode,
-            bidirectional=bidirectional, cross_kv=tree_index(cross_kv, i),
+            p_l, x, pos, cfg,
+            window=int(windows[i]), cache=c_l, mode=mode,
+            bidirectional=bidirectional, cross_kv=x_kv,
             q_chunk=q_chunk, kv_chunk=kv_chunk,
         )
         aux = aux + aux_l
@@ -204,6 +235,6 @@ def run_decoder_stack(
 def compute_cross_kv(stacked_xattn: dict, enc_out: torch.Tensor, cfg: ModelConfig):
     """Precompute per-layer encoder K/V for cross-attention (cached for
     decode): a tuple of (L, B, T, Hkv, Dh) k and v."""
-    kv = [attn.encdec_cross_kv(tree_index(stacked_xattn, i), enc_out, cfg)
-          for i in range(stack_len(stacked_xattn))]
+    kv = [attn.encdec_cross_kv(p_l, enc_out, cfg)
+          for p_l in tree_unbind(stacked_xattn, stack_len(stacked_xattn))]
     return tree_stack(kv)

@@ -27,6 +27,7 @@ from repro_torch.backend.artifact import save_artifact
 from repro_torch.configs import get_config
 from repro_torch.kernels.ops import quantized_matmul
 from repro_torch.launch.serve import serve_demo
+from repro_torch.launch.train import train
 from repro_torch.models.model import init_params, tree_map
 from repro_torch.serving.engine import EngineConfig, ServeEngine
 from repro_torch.serving.router import ShardedRouter
@@ -82,7 +83,9 @@ SLICE_MODULES = ["core/calibrate.py", "core/toolchain.py", "core/export.py",
                  "models/attention.py", "models/moe.py", "models/transformer.py",
                  "models/rwkv6.py", "models/mamba2.py", "models/model.py",
                  "core/convert.py", "core/qlayers.py", "serving/engine.py",
-                 "launch/__init__.py", "launch/serve.py"]
+                 "launch/__init__.py", "launch/serve.py", "core/qat.py", "optim/__init__.py",
+                 "optim/schedule.py", "optim/adamw.py", "optim/grad_compress.py", "data/__init__.py",
+                 "data/pipeline.py", "launch/steps.py", "launch/train.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -99,13 +102,14 @@ COPIES = sorted(
     [str(p.relative_to(PORT)) for d in ("obs", "passes") for p in (PORT / d).glob("*.py")]
     + [f"core/{m}.py" for m in ("pqir", "quant", "patterns", "runtime", "cache", "calibrate",
                                 "toolchain", "export")]
-    + ["kernels/pack.py", "distributed/fault_tolerance.py"]
+    + ["kernels/pack.py", "distributed/fault_tolerance.py", "data/__init__.py", "data/pipeline.py",
+       "optim/__init__.py"]
     + [str(p.relative_to(PORT)) for p in (PORT / "configs").glob("*.py")]
 )
 
 
 def test_the_copies_are_all_listed():
-    assert len(COPIES) == 32
+    assert len(COPIES) == 35
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -145,6 +149,8 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_demo("qwen3_1_7b", requests=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        train("qwen3_1_7b", steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(card_params, cfg, EngineConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         compile_model(_tiny_model())
@@ -172,3 +178,5 @@ def test_unported_options_raise():
     x, w = torch.zeros((2, 4), dtype=torch.int8), torch.zeros((4, 3), dtype=torch.int8)
     with pytest.raises(ValueError, match="backend"):
         quantized_matmul(x, w, None, 1.0, 1.0, backend="pallas")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        train("qwen3_1_7b", steps=1, device="cpu", mesh=object())
