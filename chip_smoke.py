@@ -95,14 +95,28 @@ Drives the port's main path on one CUDA card and fails loudly:
    ``reduced()`` (8 steps, resume to 10) and a CPU-written checkpoint
    resumed on the card at step 5; (d) ``grad_compress`` over a one-rank
    NCCL/gloo group on (b)'s gradients, card == CPU;
-11. summary — one JSON line of the kernels with their launch counts summed
-   over the served runs of phases 4–10, then the card line, then the
+11. mesh — a one-rank NCCL process group in this process (a ``HashStore``,
+   no network) and ``launch.mesh.make_test_mesh((1, 1))`` on the card: (a)
+   ``train("qwen3_1_7b", reduced=False, mesh=)`` with phase 10 (a)'s seed,
+   data, schedule and remat for ``MESH_STEPS`` steps, every param and
+   moment a DTensor on cuda, each step's loss and grad norm within
+   ``MESH_TOL`` relative of phase 10 (a)'s, median step ms beside phase
+   10's and peak memory; (b) ``qwen3_1_7b`` at full widths cut to
+   ``ZOO_CUT_LAYERS`` layers, prefill + ``ZOO_DECODE_STEPS`` decode steps
+   through ``launch.steps`` with params and caches laid out by
+   ``specs.params_shardings`` / ``cache_shardings``, logits within
+   ``MESH_TOL`` · max(1, max |unsharded|) of the same steps unsharded on the
+   card; (c) (b)'s params saved from the mesh and restored with
+   ``shardings=`` onto the mesh and onto the plain card, bit for bit;
+   (a)–(c) launch no hand-written kernel;
+12. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–11, then the card line, then the
    ``{"ok": true, ...}`` line.
 
-Each of phases 4–10 zeroes the launch counters just before each counted run
+Each of phases 4–11 zeroes the launch counters just before each counted run
 and reads them just after; a kernel of that path launched no time fails
-(the zoo's served runs and phase 10's training runs launch none of the
-hand-written kernels — they compute in plain PyTorch, as ``repro``
+(the zoo's served runs, phase 10's training runs and phase 11's mesh runs
+launch none of the hand-written kernels — they compute in plain PyTorch, as ``repro``
 computes them in XLA — and must show none; the zoo's kernel is qmatmul
 under ``QuantizedLinear``).
 Phase 7's served runs are the tuned and the warm-started token path's
@@ -2331,6 +2345,213 @@ def run_training(device, card):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh
+# ---------------------------------------------------------------------------
+
+#: (a): phase 10 (a)'s run on a one-rank mesh, its first MESH_STEPS steps
+#: (a step's loss and grad norm depend on the lr of the steps before it
+#: only, and the warm-up's two steps have the same lr for any total).
+#: Loss and grad norm within MESH_TOL relative of phase 10 (a)'s.
+MESH_STEPS, MESH_TOL = 3, 1e-5
+#: (b): prefill MESH_PROMPT tokens, then ZOO_DECODE_STEPS greedy steps, on
+#: the full widths cut to ZOO_CUT_LAYERS layers; logits within MESH_TOL ·
+#: max(1, max |unsharded|).
+MESH_BATCH, MESH_PROMPT = 4, 64
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+
+
+def _dtensors_on(device, tree, what):
+    from torch.distributed.tensor import DTensor
+
+    leaves = [a for _, a in _leaves(tree)]
+    bad = [type(a).__name__ for a in leaves if not (isinstance(a, DTensor) and a.device.type == device.type)]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(leaves)} leaves are not DTensors on {device.type}")
+    return len(leaves)
+
+
+def mesh_train(mesh, device, card, plain):
+    """(a): ``train(qwen3_1_7b, reduced=False, mesh=)`` as phase 10 (a) runs
+    it, MESH_STEPS steps, held against phase 10 (a)'s first steps."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+
+    steps = []
+
+    def on_step(step, m):
+        steps.append(dict(step=step, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                          step_ms=m["step_time_s"] * 1e3))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    params, opt, _ = train("qwen3_1_7b", steps=MESH_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
+                           schedule="warmup_cosine", seed=0, log_every=MESH_STEPS, mesh=mesh, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"(a) training on the mesh launched hand-written kernels: {launches}")
+    n = _dtensors_on(device, params, "(a) params") + _dtensors_on(device, {"m": opt["m"], "v": opt["v"]}, "(a) moments")
+    worst = 0.0
+    for got, want in zip(steps, plain["steps"]):
+        for key in ("loss", "grad_norm"):
+            err = abs(got[key] - want[key]) / abs(want[key])
+            if not err <= MESH_TOL:
+                raise AssertionError(f"(a) step {got['step']} {key}: mesh {got[key]} vs phase 10's {want[key]}")
+            worst = max(worst, err)
+    rec = dict(steps=steps, wall_s=wall, leaves=n, rel_err=worst, launches=launches,
+               median_step_ms=_median([s["step_ms"] for s in steps[1:]]),
+               plain_median_step_ms=_median([s["step_ms"] for s in plain["steps"][1:MESH_STEPS]]),
+               peak_bytes=torch.cuda.max_memory_allocated() - before, earlier_phases_bytes=before)
+    for s in steps:
+        log(f"    step {s['step']}: loss {s['loss']:.6f}, grad norm {s['grad_norm']:.6f}; {s['step_ms']:.1f} ms  ({card})")
+    log(f"  (a) qwen3_1_7b full config on the one-rank mesh (1,1), {MESH_STEPS} steps: {n} params and moments, "
+        f"each a DTensor on {device.type}; loss and grad norm of every step within {worst:.2e} relative of phase 10's "
+        f"(<= {MESH_TOL}); median step (steps 1-{MESH_STEPS - 1}) {rec['median_step_ms']:.1f} ms against phase "
+        f"10's {rec['plain_median_step_ms']:.1f} ms over the same steps; peak {rec['peak_bytes'] / 2**30:.2f} GiB "
+        f"over earlier phases ({before / 2**30:.2f} GiB); hand-written kernel launches: 0  ({card})")
+    del params, opt
+    return rec
+
+
+def mesh_serve(mesh, device, card):
+    """(b): prefill + ZOO_DECODE_STEPS decode steps through ``launch.steps``
+    on the cut full-width model, params and caches laid out on the mesh by
+    ``specs.params_shardings`` / ``cache_shardings``, against the same
+    steps unsharded on the card.  Returns the record and the mesh's params
+    (for (c))."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"), n_layers=ZOO_CUT_LAYERS)
+    params = M.init_params(torch.Generator(device=device).manual_seed(2), cfg, device=device)
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)).to(device)
+    t_max = MESH_PROMPT + ZOO_DECODE_STEPS
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    reset_launch_counts()
+    want = []
+    logits, cache = prefill(params, {"tokens": toks}, M.init_cache(cfg, MESH_BATCH, t_max, device=device))
+    feed = [logits.argmax(-1)[:, None].to(torch.int32)]
+    want.append(logits)
+    for i in range(ZOO_DECODE_STEPS):
+        pos = torch.full((MESH_BATCH,), MESH_PROMPT + i, dtype=torch.int32, device=device)
+        logits, cache = decode(params, feed[-1], pos, cache)
+        want.append(logits)
+        feed.append(logits.argmax(-1)[:, None].to(torch.int32))
+    del cache
+    with shlib.use_mesh(mesh):
+        p_d = shlib.distribute(params, specs.params_shardings(params, mesh))
+        c_plain = M.init_cache(cfg, MESH_BATCH, t_max, device=device)
+        c_d = shlib.distribute(c_plain, specs.cache_shardings(c_plain, mesh))
+        t_in = shlib.distribute({"tokens": toks}, specs.batch_shardings({"tokens": toks}, mesh))
+        got = []
+        logits, c_d = prefill(p_d, t_in, c_d)
+        got.append(logits.full_tensor())
+        for i in range(ZOO_DECODE_STEPS):
+            tp = {"tokens": feed[i], "pos": torch.full((MESH_BATCH,), MESH_PROMPT + i, dtype=torch.int32,
+                                                       device=device)}
+            tp = shlib.distribute(tp, specs.batch_shardings(tp, mesh))
+            logits, c_d = decode(p_d, tp["tokens"], tp["pos"], c_d)
+            got.append(logits.full_tensor())
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"(b) serving on the mesh launched hand-written kernels: {launches}")
+    n_cache = _dtensors_on(device, c_d, "(b) cache")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        real = w[:, :cfg.vocab_size]
+        err = float((g[:, :cfg.vocab_size] - real).abs().max()) / max(1.0, float(real.abs().max()))
+        if not err <= MESH_TOL:
+            raise AssertionError(f"(b) step {i}: logits on the mesh differ from the unsharded step by {err:.3g}")
+        worst = max(worst, err)
+    log(f"  (b) {ZOO_CUT_LAYERS} of 28 layers at full widths, batch {MESH_BATCH}: prefill {MESH_PROMPT} tokens + "
+        f"{ZOO_DECODE_STEPS} decode steps through launch.steps (bf16 compute), params and the {n_cache}-leaf "
+        f"cache laid out by specs.params_shardings / cache_shardings: logits max |d| / max(1, max |unsharded|) "
+        f"{worst:.3g} (<= {MESH_TOL}); hand-written kernel launches: 0  ({card})")
+    del c_d, params
+    return dict(rel_err=worst, steps=len(got), cache_leaves=n_cache, launches=launches), p_d
+
+
+def mesh_checkpoint(mesh, device, card, params):
+    """(c): (b)'s params saved from the mesh, restored with ``shardings=``
+    onto the mesh and onto the plain card, bit for bit."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import specs
+    from repro_torch.models import model as M
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        ckpt.save(MESH_DIR, 1, {"params": params})
+        save_s = time.perf_counter() - t
+        target = {"params": M.tree_map(lambda _, a: torch.empty(a.shape, dtype=a.dtype, device="meta"), params)}
+        p_sh = specs.params_shardings(target["params"], mesh)
+        t = time.perf_counter()
+        on_mesh, _, _ = ckpt.restore(MESH_DIR, target, shardings={"params": p_sh})
+        restore_s = time.perf_counter() - t
+        on_card, _, _ = ckpt.restore(MESH_DIR, target, shardings=device)
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    n = 0
+    for (path, a), (_, b), (_, c) in zip(_leaves(params), _leaves(on_mesh["params"]), _leaves(on_card["params"])):
+        if not (isinstance(b, DTensor) and tuple(b.placements) == tuple(a.placements)
+                and torch.equal(b.to_local(), a.to_local())):
+            raise AssertionError(f"(c) {path} restored onto the mesh differs")
+        if isinstance(c, DTensor) or c.device != device or not torch.equal(c, a.full_tensor()):
+            raise AssertionError(f"(c) {path} restored onto the card differs")
+        n += a.numel()
+    log(f"  (c) (b)'s params ({n:,} values) saved from the mesh in {save_s:.2f} s, restored onto the mesh "
+        f"(shardings=params_shardings) in {restore_s:.2f} s and onto the plain card (shardings={device}): equal bit "
+        f"for bit  ({card})")
+    return dict(values=n, save_s=save_s, restore_s=restore_s)
+
+
+def run_mesh(device, card, plain):
+    """Phase 11: a one-rank NCCL process group in this process and a (1, 1)
+    ("data", "model") mesh on the card; (a) training, (b) serving, (c)
+    checkpoints on it.  Returns the phase's record and its launches (none
+    may launch a hand-written kernel)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import describe, make_test_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), device_type=device.type)
+        log(f"  {describe(mesh)}, {mesh.device_type}, process group {dist.get_backend()}")
+        rec = {"train": mesh_train(mesh, device, card, plain)}
+        torch.cuda.empty_cache()
+        rec["serve"], params = mesh_serve(mesh, device, card)
+        rec["checkpoint"] = mesh_checkpoint(mesh, device, card, params)
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    launches = {k: rec["train"]["launches"][k] + rec["serve"]["launches"][k] for k in rec["train"]["launches"]}
+    return rec, launches
+
+
 def lut_row(rows, worst, launches):
     """The kernels-line row of qact_lut, which runs by two routes: on the
     main path as the table in the qmatmul epilogue (slice A's Tanh layer
@@ -2392,23 +2613,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/11] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/12] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/11] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/12] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/11] kernels against their plain versions (tolerance 0)")
+    log("[3/12] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/11] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    log(f"[4/12] token path: compiled token path, backend cuda vs backend ref  ({card})")
     perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
@@ -2431,7 +2652,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/11] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/12] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -2444,7 +2665,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/11] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/12] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -2457,7 +2678,7 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
-    log(f"[7/11] autotune: the token path tuned on the card (cold, then warm from the tile "
+    log(f"[7/12] autotune: the token path tuned on the card (cold, then warm from the tile "
         f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
         f"server's background; every output against the ref backend  ({card})")
     tuning, launches_tune = run_tuning(device, ref, card)
@@ -2465,7 +2686,7 @@ def main() -> int:
         f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
         f"candidates measured between batches included: {tuning['slice_a']['launches']}")
 
-    log(f"[8/11] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
+    log(f"[8/12] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
         f"by {FLEET_REPLICAS} replicas warm-started from its artifact behind a ShardedRouter, one "
         f"replica failing; phase 4's decode checkpointed through a crash; the generic pooling ops  "
         f"({card})")
@@ -2482,7 +2703,7 @@ def main() -> int:
         f"{launches_8['qmatmul_packed']}, qattention {launches_8['qattention']}; phase 8 took "
         f"{time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[9/11] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
+    log(f"[9/12] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
         f"adapter in three postures; its weights cut to {ZOO_CUT_LAYERS} layers and every other "
         f"architecture at reduced() on the card against the CPU; QuantizedLinear on the qmatmul "
         f"kernel  ({card})")
@@ -2491,7 +2712,7 @@ def main() -> int:
     log(f"  launches in phase 9's served run (QuantizedLinear, backend cuda): {launches_zoo}; "
         f"phase 9 took {time.perf_counter() - t:.1f} s")
 
-    log(f"[10/11] training: qwen3_1_7b at its full config trained on the card by "
+    log(f"[10/12] training: qwen3_1_7b at its full config trained on the card by "
         f"repro_torch.launch.train, plain and with QAT, one step profiled; its weights cut to "
         f"{TRAIN_CUT_LAYERS} layers, card vs CPU; resume; grad_compress  ({card})")
     t = time.perf_counter()
@@ -2499,9 +2720,17 @@ def main() -> int:
     log(f"  launches in phase 10's training runs: {launches_train} (training computes in plain "
         f"PyTorch, as repro trains in XLA); phase 10 took {time.perf_counter() - t:.1f} s  ({card})")
 
+    log(f"[11/12] mesh: a one-rank NCCL process group and a (1, 1) (data, model) DeviceMesh on the card; "
+        f"qwen3_1_7b at its full config trained on it ({MESH_STEPS} steps, against phase 10), served cut to "
+        f"{ZOO_CUT_LAYERS} layers (against the unsharded steps), checkpointed from it and restored  ({card})")
+    t = time.perf_counter()
+    mesh, launches_mesh = run_mesh(device, card, training["plain"])
+    log(f"  launches in phase 11's mesh runs: {launches_mesh} (the sharded steps compute in plain PyTorch); "
+        f"phase 11 took {time.perf_counter() - t:.1f} s  ({card})")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
                 + launches_tune.get(k, 0) + launches_8.get(k, 0) + launches_zoo.get(k, 0)
-                + launches_train.get(k, 0) for k in launches_tok}
+                + launches_train.get(k, 0) + launches_mesh.get(k, 0) for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
     # at the decode shapes (qattention: one launch per head)
@@ -2536,10 +2765,10 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[11/11] summary: launches are summed over the served runs of phases 4-10 (phase 7: "
+    log("[12/12] summary: launches are summed over the served runs of phases 4-11 (phase 7: "
         "the tuned and the warm-started token path's drives, no tuning candidate; phase 8: "
         "the fleet's rounds and failover wave and the resilient decode; phase 9: "
-        "QuantizedLinear on backend cuda; phase 10's training runs launch none); "
+        "QuantizedLinear on backend cuda; phase 10's training runs and phase 11's mesh runs launch none); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
@@ -2556,10 +2785,11 @@ def main() -> int:
                    "slice": perf, "slice_a": perf_a,
                    "slice_b": perf_b, "autotune": tuning, "fleet": fleet,
                    "checkpoint": checkpoint, "pooling": pooling, "zoo": zoo, "training": training,
+                   "mesh": mesh,
                    "launches": {"token_path": launches_tok, "slice_a": launches_a,
                                 "slice_b": launches_b, "autotune": launches_tune,
                                 "fleet_and_checkpoints": launches_8, "zoo": launches_zoo,
-                                "training": launches_train},
+                                "training": launches_train, "mesh": launches_mesh},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

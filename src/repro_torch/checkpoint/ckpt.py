@@ -10,9 +10,14 @@ Fault-tolerance properties:
     LATEST pointer update — a crash mid-save never corrupts the previous
     checkpoint;
   * elastic restore: leaves are loaded host-side and moved to the device
-    ``shardings`` names (or the target leaf's own device) — the restoring
-    process may run on other devices than the saving one (a checkpoint
-    written from the CPU restores onto the card);
+    ``shardings`` names (or the target leaf's own device), or laid out as
+    a DTensor over the mesh of a ``sharding.NamedSharding`` (or of a
+    DTensor target leaf) — the restoring process may run on other devices
+    or another mesh than the saving one (a checkpoint written from the CPU
+    restores onto the card; one saved from 4 ranks into 2);
+  * sharded save: a DTensor leaf is gathered whole (``full_tensor``) on
+    every rank, and only rank 0 of the process group writes; the ranks
+    meet at a barrier before ``save`` returns;
   * self-describing: restore needs no model code, only the manifest.
 
 The container format is ``repro.checkpoint.ckpt``'s, byte for byte: trees of
@@ -32,6 +37,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _CONTAINERS = (dict, list, tuple)
 
@@ -113,6 +120,8 @@ def _paths_and_leaves(tree):
 
 
 def _host_array(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()  # a collective: every rank gathers
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(
@@ -123,35 +132,54 @@ def _host_array(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _world() -> Tuple[int, int]:
+    """(rank, ranks) of the default process group; (0, 1) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None) -> str:
-    """Atomically save a tree as step_<step>."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically save a tree as step_<step>.  Under a process group every
+    rank calls this (a DTensor leaf is gathered by all of them) and rank 0
+    writes."""
+    rank, ranks = _world()
     paths, leaves = _paths_and_leaves(tree)
-    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    tmp = None
+    if rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         for i, leaf in enumerate(leaves):
-            np.save(os.path.join(tmp, f"leaf_{i}.npy"), _host_array(leaf))
-        manifest = {
-            "step": step,
-            "paths": paths,
-            "treedef": f"PyTreeDef({_treedef_str(tree)})",
-            "num_leaves": len(leaves),
-            "extra": extra or {},
-        }
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        final = os.path.join(ckpt_dir, f"step_{step}")
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+            a = _host_array(leaf)
+            if tmp is not None:
+                np.save(os.path.join(tmp, f"leaf_{i}.npy"), a)
+        if tmp is not None:
+            manifest = {
+                "step": step,
+                "paths": paths,
+                "treedef": f"PyTreeDef({_treedef_str(tree)})",
+                "num_leaves": len(leaves),
+                "extra": extra or {},
+            }
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
     except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
         raise
-    # LATEST pointer last — readers never see a partial checkpoint
-    latest_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
-    with open(latest_tmp, "w") as f:
-        f.write(str(step))
-    os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
+    if rank == 0:
+        # LATEST pointer last — readers never see a partial checkpoint
+        latest_tmp = os.path.join(ckpt_dir, ".LATEST.tmp")
+        with open(latest_tmp, "w") as f:
+            f.write(str(step))
+        os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
+    if ranks > 1:
+        dist.barrier()
     return final
 
 
@@ -172,11 +200,13 @@ def restore(
 ) -> Tuple[Any, int, dict]:
     """Restore into the structure of ``target_tree``; every leaf comes back
     as a tensor.  ``shardings`` names the devices: one ``torch.device`` (or
-    device string) for every leaf, or a tree of them matching the target's
-    (a None entry follows its target leaf).  With ``shardings=None`` each
-    leaf goes to the device of its target leaf — the CPU for a target leaf
-    that is not a tensor.  The saving devices do not matter (elastic
-    restart)."""
+    device string) for every leaf, or a tree of them matching the target's,
+    whose entries may also be ``sharding.NamedSharding``s: such a leaf is
+    laid out over that mesh (``distribute_tensor``; every rank reads the
+    file, so no rank sends).  A None entry, or ``shardings=None``, follows
+    the target leaf: a DTensor target's mesh and placements, a tensor's
+    device, the CPU for a leaf that is not a tensor.  The saving devices and
+    mesh do not matter (elastic restart)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -184,19 +214,31 @@ def restore(
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    leaves = [np.load(os.path.join(d, f"leaf_{i}.npy")) for i in range(manifest["num_leaves"])]
+    n = manifest["num_leaves"]
     _, targets = _paths_and_leaves(target_tree)
-    if len(targets) != len(leaves):
-        raise ValueError(f"checkpoint has {len(leaves)} leaves; target expects {len(targets)}")
+    if len(targets) != n:
+        raise ValueError(f"checkpoint has {n} leaves; target expects {len(targets)}")
     if isinstance(shardings, (str, torch.device)):
-        devices = [shardings] * len(leaves)
+        places = [shardings] * n
     elif shardings is not None:
-        devices = _flatten_up_to(target_tree, shardings)
+        places = _flatten_up_to(target_tree, shardings)
     else:
-        devices = [None] * len(leaves)
-    devices = [
-        dev if dev is not None else (t.device if isinstance(t, torch.Tensor) else "cpu")
-        for dev, t in zip(devices, targets)
-    ]
-    placed = [torch.from_numpy(leaf).to(dev) for leaf, dev in zip(leaves, devices)]
+        places = [None] * n
+    placed = [_place(np.load(os.path.join(d, f"leaf_{i}.npy")), where, t)
+              for i, (where, t) in enumerate(zip(places, targets))]
     return tree_unflatten(target_tree, iter(placed)), step, manifest.get("extra", {})
+
+
+def _place(a: np.ndarray, where, target) -> torch.Tensor:
+    """A loaded leaf on ``where`` (a device, a ``NamedSharding`` or None:
+    as ``target``)."""
+    if where is None:
+        if isinstance(target, DTensor):
+            mesh, placements = target.device_mesh, target.placements
+            return distribute_tensor(torch.from_numpy(a).to(mesh.device_type), mesh, placements,
+                                     src_data_rank=None)
+        where = target.device if isinstance(target, torch.Tensor) else "cpu"
+    if hasattr(where, "placements"):  # a sharding.NamedSharding
+        return distribute_tensor(torch.from_numpy(a).to(where.mesh.device_type), where.mesh,
+                                 where.placements, src_data_rank=None)
+    return torch.from_numpy(a).to(where)

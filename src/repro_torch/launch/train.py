@@ -4,11 +4,14 @@
         --batch 8 --seq 256 [--full] [--qat] [--ckpt-dir /tmp/ckpt] [--schedule wsd] \\
         [--device cpu]
 
-Trains on the CUDA card unless ``--device`` names another device, one card
-at a time: the same step as ``repro.launch.train`` (seeded synthetic data,
-``loss_fn``, gradients, optional QAT, AdamW with a schedule, microbatch
-accumulation, the config's remat policy) and ``repro``'s checkpoints with
-resume, so a ``repro`` checkpoint resumes here.  Eager and float32 by
+Trains on the CUDA card unless ``--device`` names another device, or over
+the ranks of a ``torch.distributed`` device mesh (``train(mesh=)``, each
+rank running this function: params, moments and batches laid out as
+DTensors by ``launch.specs``'s logical shardings): the same step as
+``repro.launch.train`` (seeded synthetic data, ``loss_fn``, gradients,
+optional QAT, AdamW with a schedule, microbatch accumulation, the config's
+remat policy) and ``repro``'s checkpoints with resume, so a ``repro``
+checkpoint resumes here.  Eager and float32 by
 default; TF32 stays as the caller set it.
 """
 from __future__ import annotations
@@ -23,10 +26,17 @@ from ..configs.base import ShapeConfig
 from ..core.compile import resolve_device
 from ..data.pipeline import DataConfig, Pipeline
 from ..distributed.fault_tolerance import CheckpointManager, CheckpointManagerConfig, StragglerMonitor
-from ..distributed.sharding import use_mesh
+from ..distributed import sharding as shlib
+from ..distributed.sharding import DeviceMesh, DTensor, use_mesh
 from ..models import model as M
 from ..optim import adamw
+from . import specs as specs_lib
 from . import steps as steps_lib
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor: a DTensor's whole value."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def train(
@@ -49,11 +59,14 @@ def train(
     device=None,
     on_step=None,
 ):
-    """Train ``arch`` for ``steps`` steps on ``device`` (``None``: the card);
-    returns ``(params, opt_state, losses)``.  ``on_step(step, metrics)``,
-    when given, is called after each step with its metrics (tensors) and
-    ``step_time_s``: the host clock from the batch's creation to the
-    step's loss on the host."""
+    """Train ``arch`` for ``steps`` steps on ``device`` (``None``: the card)
+    or, with ``mesh`` (a ``DeviceMesh``; ``device`` is then the mesh's), on
+    this rank's shards of it; returns ``(params, opt_state, losses)``.
+    ``on_step(step, metrics)``, when given, is called after each step with
+    its metrics (plain tensors) and ``step_time_s``: the host clock from the
+    batch's creation to the step's loss on the host."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"train(mesh=) takes a torch DeviceMesh, not {type(mesh).__name__}")
     cfg = get_config(arch, reduced=reduced)
     sc = ShapeConfig("custom", "train", seq, batch, microbatches=microbatches)
     pipe = Pipeline(cfg, DataConfig(seed=seed))
@@ -68,8 +81,10 @@ def train(
     monitor = StragglerMonitor()
 
     with use_mesh(mesh):
-        dev = resolve_device(device)
+        dev = resolve_device(device if mesh is None else mesh.device_type)
         params = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+        if mesh is not None:  # every rank drew the same values: each keeps its shard
+            params = shlib.distribute(params, specs_lib.params_shardings(params, mesh))
         opt = adamw.init(params)
         start = 0
         if manager and resume and manager.has_checkpoint():
@@ -79,8 +94,11 @@ def train(
         history = []
         for step in range(start, steps):
             monitor.start_step()
-            data = pipe.batch(step, batch, seq)
-            params, opt, metrics = step_fn(params, opt, {k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+            data = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch(step, batch, seq).items()}
+            if mesh is not None:
+                data = shlib.distribute(data, specs_lib.batch_shardings(data, mesh))
+            params, opt, metrics = step_fn(params, opt, data)
+            metrics = {k: _full(v) for k, v in metrics.items()}
             loss = float(metrics["loss"])  # waits for the step
             mm = monitor.end_step(step)
             history.append(loss)

@@ -25,7 +25,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.qlayers import div127
-from ..distributed.sharding import shard
+from ..distributed.sharding import shard, split_last, unshard_for_split, unshard_grad_for_split
 from .layers import apply_rope, linear, param, rmsnorm, softcap_fn
 
 NEG_INF = -2.0**30  # large-negative instead of -inf: keeps softmax NaN-free
@@ -200,20 +200,26 @@ def _quantize_kv(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _write_rows(buf: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """A copy of ``buf`` with ``val`` written at positions [0, S) of axis 1."""
-    out = buf.clone()
-    out[:, : val.shape[1]] = val
-    return out
+    """A copy of ``buf`` with ``val`` written at positions [0, S) of axis 1,
+    as one select between ``buf`` and ``val`` padded to ``buf``'s length.
+    A store into a slice of a DTensor sharded along axis 1 (a cache laid
+    out over ``seq_shard``) writes the wrong rows without an error; the
+    select keeps each rank's rows, and is exact on any tensor."""
+    s, t = val.shape[1], buf.shape[1]
+    padded = torch.nn.functional.pad(val, (0, 0) * (buf.ndim - 2) + (0, t - s))
+    old = torch.arange(t, device=buf.device) >= s
+    return torch.where(old.reshape((t,) + (1,) * (buf.ndim - 2)), buf, padded)
 
 
 def _write_at(buf: torch.Tensor, val: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """A copy of ``buf`` (B, T, ...) with each row b's one-token ``val[b, 0]``
-    written at position ``pos[b]``, in one indexed store.  Positions clamp
-    into [0, T), as ``lax.dynamic_update_slice`` clamps its start index."""
-    out = buf.clone()
-    rows = torch.arange(buf.shape[0], device=buf.device)
-    out[rows, pos.long().clamp(0, buf.shape[1] - 1)] = val[:, 0]
-    return out
+    written at position ``pos[b]``, as one select over the rows (a pointwise
+    op, so a cache laid out over a mesh keeps its layout; an indexed store
+    has no DTensor rule on sharded rows).  Positions clamp into [0, T), as
+    ``lax.dynamic_update_slice`` clamps its start index."""
+    t = buf.shape[1]
+    hit = torch.arange(t, device=buf.device) == pos.long().clamp(0, t - 1)[:, None]  # (B, T)
+    return torch.where(hit.reshape(hit.shape + (1,) * (buf.ndim - 2)), val.to(buf.dtype), buf)
 
 
 def write_prefill_kv(cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -255,7 +261,7 @@ def read_kv(cache: dict) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _split_heads(x, n_heads, hd):
-    return x.reshape(x.shape[:-1] + (n_heads, hd))
+    return split_last(x, n_heads, hd)
 
 
 def gqa_attention(
@@ -284,7 +290,7 @@ def gqa_attention(
     rope_pos = (pos[None, :] if mode != "decode" else pos[:, None]).expand(b, s)
     q = apply_rope(q, rope_pos, cfg.rope_theta)
     k = apply_rope(k, rope_pos, cfg.rope_theta)
-    q = shard(q.reshape(b, s, hkv, g, hd), "batch", None, "kv_heads_act", None, None)
+    q = shard(unshard_for_split(q, 2, hkv).reshape(b, s, hkv, g, hd), "batch", None, "kv_heads_act", None, None)
     k = shard(k, "batch", None, "kv_heads_act", None)
     v = shard(v, "batch", None, "kv_heads_act", None)
     scale = hd**-0.5
@@ -324,7 +330,8 @@ def gqa_attention(
             scale=scale, window=window, softcap=cfg.attn_softcap,
             bidirectional=bidirectional, q_chunk=q_chunk, kv_chunk=kv_chunk,
         )
-    out = out.reshape(b, s, cfg.n_heads * hd)
+    # the gradient of the merged heads splits into (Hkv, G) again
+    out = unshard_grad_for_split(out.reshape(b, s, cfg.n_heads * hd), -1, hkv)
     return linear(out, p["wo"]), new_cache
 
 
@@ -338,7 +345,7 @@ def cross_attention(
     hd = cfg.hd()
     hkv = cfg.n_kv_heads
     g = cfg.n_heads // hkv
-    q = _split_heads(linear(x, p["wq"]), cfg.n_heads, hd).reshape(b, s, hkv, g, hd)
+    q = unshard_for_split(_split_heads(linear(x, p["wq"]), cfg.n_heads, hd), 2, hkv).reshape(b, s, hkv, g, hd)
     k, v = enc_kv
     t = k.shape[1]
     out = chunked_attention(
@@ -347,7 +354,7 @@ def cross_attention(
         scale=hd**-0.5, window=0, bidirectional=True,
         q_chunk=min(1024, s), kv_chunk=min(1024, t),
     )
-    return linear(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
+    return linear(unshard_grad_for_split(out.reshape(b, s, cfg.n_heads * hd), -1, hkv), p["wo"])
 
 
 def encdec_cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig):
@@ -398,7 +405,7 @@ def mla_attention(
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
 
     cq = rmsnorm(linear(x, p["q_down"]), p["q_norm"], eps=cfg.norm_eps)
-    q = linear(cq, p["q_up"]).reshape(b, s, nh, dn + dr)
+    q = _split_heads(linear(cq, p["q_up"]), nh, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
 
     ckv_full = linear(x, p["kv_down"])  # (B,S,rank+dr)
@@ -438,7 +445,7 @@ def mla_attention(
         ckv_all, k_pe_all, t = ckv, k_pe, s
 
     # up-project latents to per-head K (nope) and V
-    kv = linear(ckv_all.to(x.dtype), p["kv_up"]).reshape(b, t, nh, dn + dv)
+    kv = _split_heads(linear(ckv_all.to(x.dtype), p["kv_up"]), nh, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([k_nope, k_pe_all[:, :, None, :].to(x.dtype).expand(b, t, nh, dr)], dim=-1)
     qh = torch.cat([q_nope, q_pe], dim=-1).reshape(b, s, nh, 1, dn + dr)
@@ -449,6 +456,7 @@ def mla_attention(
     else:
         out = chunked_attention(qh, k, v, pos, pos, scale=scale, window=0,
                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
-    out = out.reshape(b, s, nh * dv)
+    # heads may arrive split unevenly (40 over 16); DTensor merges only even splits
+    out = unshard_grad_for_split(unshard_for_split(out, 2, nh).reshape(b, s, nh * dv), -1, nh)
     return linear(out, p["wo"]), new_cache
 

@@ -27,9 +27,11 @@ def param(gen: torch.Generator, shape: Sequence[int], scale: float = 0.02,
           dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
     """Normal(0, scale²) draws from ``gen`` on the generator's device, then
     moved to ``device`` (so a CPU generator gives the same values on any
-    device)."""
-    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=gen.device) * scale
-    return x.to(device=device or gen.device, dtype=dtype)
+    device).  On the ``meta`` device nothing is drawn: only shape and dtype."""
+    dev = gen.device if device is None else torch.device(device)
+    x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=dev if dev.type == "meta" else gen.device) * scale
+    return x.to(device=dev, dtype=dtype)
 
 
 def _promote(*ts: torch.Tensor):

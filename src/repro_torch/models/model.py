@@ -26,7 +26,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.compile import resolve_device
-from ..distributed.sharding import shard
+from ..distributed.sharding import shard, unshard
 from . import attention as attn
 from . import transformer as tfm
 from .layers import embed, init_embedding, logits_from_embedding, param, rmsnorm
@@ -371,7 +371,9 @@ def loss_fn(
     m = logits.amax(dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
     valid = labels >= 0
-    gold = torch.gather(logits, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    # DTensor's vocab-parallel gather leaves a masked partial that the
+    # subtraction below cannot reduce: gather from whole rows under a mesh
+    gold = torch.gather(unshard(logits, -1), -1, torch.where(valid, labels, 0)[..., None])[..., 0]
     valid = valid.to(torch.float32)
     nll = (lse - gold) * valid
     tokens = valid.sum()

@@ -11,7 +11,8 @@ Where the port differs in means, not in result:
 * ``lax.top_k`` returns the lower index first on ties, and ``torch.topk``
   promises no order on the card, so the top k are taken from a stable
   descending sort;
-* the segment sum is ``index_add_`` into ``E·C + 1`` rows.  Every in-capacity
+* the segment sum is a ``scatter_add`` into each group's ``E·C + 1`` rows
+  (a DTensor op, local to each group's shard).  Every in-capacity
   (token, slot) owns its row alone, so each kept row is one value added to
   zero, exact in any order; the last row collects the overflow and is
   dropped, so the atomics there change no result.
@@ -57,16 +58,16 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, device=None, lead=()) -
 
 def _dispatch_shards(t: int) -> int:
     """Number of shard-local dispatch groups: the size of the batch
-    ('pod'×'data') mesh axes when a mesh is active, else 1 — always 1 on one
-    card."""
-    from ..distributed.sharding import active_mesh
+    ('pod'×'data') mesh axes when a mesh is active, else 1."""
+    from ..distributed.sharding import active_mesh, axis_sizes
 
     mesh = active_mesh()
     if mesh is None:
         return 1
+    sizes = axis_sizes(mesh)
     nd = 1
     for ax in ("pod", "data"):
-        nd *= mesh.shape.get(ax, 1)
+        nd *= sizes.get(ax, 1)
     return nd if t % nd == 0 else 1
 
 
@@ -77,7 +78,9 @@ def _expert_einsum(buf: torch.Tensor, w) -> torch.Tensor:
         bq, sx = dynamic_quantize(buf)
         acc = int_matmul(bq, w["q8"][None])  # (x,e,c,d) @ (1,e,d,f)
         return (acc.to(torch.float32) * (sx * w["s"][None, :, None, :])).to(buf.dtype)
-    return torch.einsum("xecd,edf->xecf", buf, w.to(buf.dtype))
+    # a broadcast matmul, not einsum: under a mesh DTensor's einsum backward
+    # views an expert dim it split unevenly (60 over 16) and fails
+    return torch.matmul(buf, w.to(buf.dtype)[None])
 
 
 def top_k(probs: torch.Tensor, k: int):
@@ -127,10 +130,8 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, t
 
     # dispatch: per-group scatter into (E*C, d) buffers (unique slots ⇒ copy)
     x_slots = torch.repeat_interleave(xf, k, dim=1)  # (nd, Tl*k, d)
-    flat_slot = (slot + rows * torch.arange(nd, device=x.device)[:, None]).reshape(-1)
-    buf = torch.zeros((nd * rows, d), dtype=xf.dtype, device=x.device)
-    buf.index_add_(0, flat_slot, x_slots.reshape(-1, d))
-    buf = buf.reshape(nd, rows, d)[:, :-1].reshape(nd, e, cap, d)
+    buf = xf.new_zeros((nd, rows, d)).scatter_add(1, slot[..., None].expand(nd, tl * k, d), x_slots)
+    buf = buf[:, :-1].reshape(nd, e, cap, d)
     buf = shard(buf, "batch", None, None, None)
 
     # expert computation — swiglu per expert
@@ -144,9 +145,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, t
     out_flat = out.reshape(nd, e * cap, d)
     take = torch.clamp_max(slot, e * cap - 1)[..., None].expand(nd, tl * k, d)
     gathered = torch.where(in_cap[..., None], torch.gather(out_flat, 1, take), 0.0)
+    # (nd, Tl, d) on: under a mesh, DTensor's backward of a (t, d) view
+    # back to (nd, Tl, d) mislays a token dim sharded over two mesh axes
     y = (gathered.reshape(nd, tl, k, d) * gate_w[..., None].to(gathered.dtype)).sum(dim=2)
-    y = y.reshape(t, d)
-    xf = xf.reshape(t, d)
 
     # shared expert(s) — qwen2-moe style, sigmoid-gated
     if "shared_w_gate" in p:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import split_last
 from .layers import einsum, linear, matmul, param, rmsnorm
 
 
@@ -80,7 +81,7 @@ def _ddlerp(p: dict, x: torch.Tensor, xx: torch.Tensor):
     """Finch data-dependent token-shift interpolation for the 5 targets."""
     base = x + (xx - x) * p["tm_maa_x"]
     lora = torch.tanh(matmul(base, p["tm_maa_w1"]))  # (B,S,5r)
-    lora = lora.reshape(lora.shape[:-1] + (5, -1))  # (B,S,5,r)
+    lora = split_last(lora, 5, -1)  # (B,S,5,r)
     deltas = einsum("bsfr,frd->bsfd", lora, p["tm_maa_w2"])  # (B,S,5,d)
     outs = []
     for i in range(5):
@@ -121,11 +122,11 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig) -> T
     dd = matmul(torch.tanh(matmul(xw, p["td_w1"])), p["td_w2"])
     w = torch.exp(-torch.exp((p["time_decay"] + dd).to(torch.float32)))  # (B,S,d) in (0,1)
 
-    r = linear(xr, p["wr"]).reshape(b, s, nh, hd)
-    k = linear(xk, p["wk"]).reshape(b, s, nh, hd)
-    v = linear(xv, p["wv"]).reshape(b, s, nh, hd)
+    r = split_last(linear(xr, p["wr"]), nh, hd)
+    k = split_last(linear(xk, p["wk"]), nh, hd)
+    v = split_last(linear(xv, p["wv"]), nh, hd)
     g = F.silu(linear(xg, p["wg"]))
-    wh = w.reshape(b, s, nh, hd)
+    wh = split_last(w, nh, hd)
 
     y, wkv_new = _wkv_scan(r, k, v, wh, p["time_faaaa"].to(torch.float32), state["wkv"])
 

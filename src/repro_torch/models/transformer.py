@@ -18,7 +18,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import shard
+from ..distributed.sharding import bind_mesh, shard
 from . import attention as attn
 from .layers import init_mlp, mlp, rmsnorm
 from .moe import init_moe, moe_ffn
@@ -149,9 +149,11 @@ def _remat(fn, policy: str):
     keeps every activation; ``"nothing_saveable"`` keeps only ``fn``'s
     inputs and recomputes the rest in the backward; ``"dots"`` also keeps
     the matmul outputs.  Recomputation repeats the same operations, so the
-    gradients equal those of ``"none"`` bit for bit."""
+    gradients equal those of ``"none"`` bit for bit, under the mesh of the
+    forward (:func:`~repro_torch.distributed.sharding.bind_mesh`)."""
     if policy == "none":
         return fn
+    fn = bind_mesh(fn)
     if policy == "nothing_saveable":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if policy == "dots":

@@ -8,6 +8,11 @@ run the same operations.  Leaves are visited in JAX's pytree order (dict
 keys sorted), so :func:`global_norm` sums the leaves in ``repro``'s order.
 Every division goes by a device tensor (CUDA divides by a host scalar as a
 multiply by its reciprocal).
+
+On a mesh the params, gradients and moments are DTensors, while ``step``
+(unsharded, as ``repro`` keeps it), the bias corrections and ``lr`` stay
+plain tensors: the update runs inside ``sharding.use_mesh``, whose
+``implicit_replication`` takes each as the same value on every rank.
 """
 from __future__ import annotations
 

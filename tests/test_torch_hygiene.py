@@ -85,7 +85,8 @@ SLICE_MODULES = ["core/calibrate.py", "core/toolchain.py", "core/export.py",
                  "core/convert.py", "core/qlayers.py", "serving/engine.py",
                  "launch/__init__.py", "launch/serve.py", "core/qat.py", "optim/__init__.py",
                  "optim/schedule.py", "optim/adamw.py", "optim/grad_compress.py", "data/__init__.py",
-                 "data/pipeline.py", "launch/steps.py", "launch/train.py"]
+                 "data/pipeline.py", "launch/steps.py", "launch/train.py", "launch/mesh.py",
+                 "launch/specs.py", "launch/dryrun.py"]
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
@@ -106,6 +107,14 @@ COPIES = sorted(
        "optim/__init__.py"]
     + [str(p.relative_to(PORT)) for p in (PORT / "configs").glob("*.py")]
 )
+
+
+def test_every_repro_module_has_a_port_counterpart():
+    """The module port is complete: each ``.py`` of ``src/repro`` has a file
+    at the same path in ``src/repro_torch``."""
+    theirs = {str(p.relative_to(ROOT / "src" / "repro")) for p in (ROOT / "src" / "repro").rglob("*.py")}
+    ours = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert sorted(theirs - ours) == []
 
 
 def test_the_copies_are_all_listed():
@@ -178,5 +187,5 @@ def test_unported_options_raise():
     x, w = torch.zeros((2, 4), dtype=torch.int8), torch.zeros((4, 3), dtype=torch.int8)
     with pytest.raises(ValueError, match="backend"):
         quantized_matmul(x, w, None, 1.0, 1.0, backend="pallas")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train("qwen3_1_7b", steps=1, device="cpu", mesh=object())

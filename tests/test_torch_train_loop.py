@@ -13,13 +13,13 @@ next four ≤ 1.4e-7: float32 sums in other orders, grown by four AdamW
 steps).
 """
 import shutil
+import tempfile
 
 import numpy as np
 import pytest
 import torch
 
 from repro.launch.train import train as repro_train
-from repro_torch.distributed.sharding import use_mesh
 from repro_torch.launch import train as T
 
 KW = dict(batch=4, seq=32, log_every=100)
@@ -88,8 +88,24 @@ def test_cli_trains_on_the_requested_device(capsys):
 
 
 def test_a_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.train("qwen3_1_7b", steps=1, device="cpu", mesh=object(), **KW)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        with use_mesh(object()):
-            pass
+    """A one-rank ``gloo`` mesh trains as ``train()`` does on the CPU, and
+    every parameter and moment comes back a DTensor on that mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.launch.mesh import make_test_mesh
+
+    _, _, want = T.train("qwen3_1_7b", steps=3, device="cpu", **KW)
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    dist.init_process_group("gloo", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1), device_type="cpu")
+        params, opt, got = T.train("qwen3_1_7b", steps=3, mesh=mesh, **KW)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    assert got == want
+    leaves = tree_leaves(params) + tree_leaves(opt["m"]) + tree_leaves(opt["v"])
+    assert all(isinstance(a, DTensor) and a.device_mesh is mesh for a in leaves)
+    assert int(opt["step"]) == 3
