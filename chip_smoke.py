@@ -108,17 +108,39 @@ Drives the port's main path on one CUDA card and fails loudly:
    ``MESH_TOL`` · max(1, max |unsharded|) of the same steps unsharded on the
    card; (c) (b)'s params saved from the mesh and restored with
    ``shardings=`` onto the mesh and onto the plain card, bit for bit;
-   (a)–(c) launch no hand-written kernel;
-12. summary — one JSON line of the kernels with their launch counts summed
-   over the served runs of phases 4–11, then the card line, then the
+   (a)–(c) launch no hand-written kernel; (d) ``tests/test_torch_mesh.py``'s
+   4-rank gloo train step and prefill + decode steps, spawned as CPU
+   processes under the card's torch, against one device; (e) the
+   dry-run's byte accounting (``launch.dryrun._Accounting``) over one
+   train step on the mesh beside the allocator's peak rise, at full width
+   and at ``reduced()``;
+12. recurrent families at full width — ``rwkv6_3b`` at its published config
+   (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536;
+   float32 masters from a seeded card generator): (a) served by
+   ``ServeEngine``'s default adapter, 4 slots, ``RECUR_REQUESTS`` greedy
+   requests of ``RECUR_PROMPT`` tokens (tokens/s, prefill and decode-step
+   ms, peak memory, one profiled prefill and decode step), and one
+   prefill and one decode step with the chunked WKV6 against the same
+   through its per-step plain version (host ms of each, logits within
+   ``ZOO_TOL``);
+   (b) the chunked ``_wkv_scan`` against its plain version at one layer's
+   full shape ``RECUR_LAYER`` (outputs, final state, the gradients of r,
+   k, v, the log-decay, u and the state within ``RECUR_TOL``; each timed),
+   and the weights cut to ``ZOO_CUT_LAYERS`` layers, card against CPU as
+   phase 9 (b); (c) ``train("rwkv6_3b", reduced=False)`` as phase 10 (a)
+   runs qwen3 (float32, TF32 off, ``nothing_saveable``, batch 4 × 512) for
+   ``RECUR_TRAIN_STEPS`` steps and one profiled step; no hand-written
+   kernel launches;
+13. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–12, then the card line, then the
    ``{"ok": true, ...}`` line.
 
-Each of phases 4–11 zeroes the launch counters just before each counted run
+Each of phases 4–12 zeroes the launch counters just before each counted run
 and reads them just after; a kernel of that path launched no time fails
-(the zoo's served runs, phase 10's training runs and phase 11's mesh runs
-launch none of the hand-written kernels — they compute in plain PyTorch, as ``repro``
-computes them in XLA — and must show none; the zoo's kernel is qmatmul
-under ``QuantizedLinear``).
+(the zoo's served runs, phase 10's training runs, phase 11's mesh runs and
+phase 12's runs launch none of the hand-written kernels — they compute in
+plain PyTorch, as ``repro`` computes them in XLA — and must show none; the
+zoo's kernel is qmatmul under ``QuantizedLinear``).
 Phase 7's served runs are the tuned and the warm-started token path's
 drives; phase 8's, the fleet's rounds, its failover wave and the resilient
 decode; the launches of the tuner's candidates (timed on synthetic inputs,
@@ -137,6 +159,7 @@ import os
 import shutil
 import subprocess
 import sys
+import textwrap
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1733,28 +1756,33 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
-def serve_posture(params, cfg, prompts, profile=False):
-    """One posture of (a): warm the engine's paths on one request of each
-    prompt length, then serve every request, timing each adapter call;
-    optionally profile one decode step after a discarded warm-up step."""
+def serve_posture(params, cfg, prompts, profile=False, new_tokens=ZOO_NEW_TOKENS):
+    """One posture of (a) (phase 12 (a) serves the same way): warm the
+    engine's paths on one request of each prompt length, then serve every
+    request, timing each adapter call; optionally profile one decode step
+    and one prefill of the first prompt, each after a discarded warm-up
+    call."""
     import numpy as np
     import torch
 
+    from repro_torch.backend.plan import bucket_multiple
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
 
-    ecfg = EngineConfig(slots=ZOO_SLOTS, max_len=max(ZOO_PROMPTS) + ZOO_NEW_TOKENS + 8)
+    lens = [len(p) for p in prompts]
+    ecfg = EngineConfig(slots=ZOO_SLOTS, max_len=max(lens) + new_tokens + 8)
     warm = ServeEngine(params, cfg, ecfg)
-    for i, n in enumerate(sorted(set(ZOO_PROMPTS))):
-        warm.submit(Request(uid=i, prompt=prompts[ZOO_PROMPTS.index(n)], max_new_tokens=2))
+    for i, n in enumerate(sorted(set(lens))):
+        warm.submit(Request(uid=i, prompt=prompts[lens.index(n)], max_new_tokens=2))
     warm.run_until_drained()
     del warm
     eng = ServeEngine(params, cfg, ecfg)
     prefill_ms, decode_ms = [], []
-    eng.adapter.prefill = _timed(eng.adapter.prefill, prefill_ms)
+    prefill = eng.adapter.prefill
+    eng.adapter.prefill = _timed(prefill, prefill_ms)
     decode = eng.adapter.decode
     eng.adapter.decode = _timed(decode, decode_ms)
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=ZOO_NEW_TOKENS) for i, p in enumerate(prompts)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens) for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     reset_launch_counts()
@@ -1772,14 +1800,40 @@ def serve_posture(params, cfg, prompts, profile=False):
                metrics=dict(eng.metrics), launches=launch_counts(),
                generated=[list(r.generated) for r in reqs])
     out["tokens_per_s"] = out["tokens"] / wall
-    if [len(g) for g in out["generated"]] != [ZOO_NEW_TOKENS] * len(prompts):
+    if [len(g) for g in out["generated"]] != [new_tokens] * len(prompts):
         raise AssertionError(f"generated {[len(g) for g in out['generated']]} tokens")
     if profile:
         toks = np.array([[g[-1]] for g in out["generated"][:ZOO_SLOTS]], np.int32)
-        pos = np.full((ZOO_SLOTS,), max(ZOO_PROMPTS), np.int32)
+        pos = np.full((ZOO_SLOTS,), max(lens), np.int32)
         cache = eng.adapter.init_cache(ZOO_SLOTS, eng.ecfg.max_len)
         out["decode_device"] = profile_steps(lambda: decode(toks, pos, cache))
+        padded = np.zeros((1, bucket_multiple(lens[0], ecfg.prefill_bucket)), np.int32)
+        padded[0, :lens[0]] = prompts[0]
+        out["prefill_device"] = profile_steps(lambda: prefill(padded, lens[0], eng.ecfg.max_len))
+    # the timed wrappers close over the adapter's own methods: a cycle that
+    # would keep the weights alive until the garbage collector ran
+    del eng.adapter.prefill, eng.adapter.decode
     return out
+
+
+def log_profiles(res, what):
+    """Log a served run's profiled decode step and prefill (device ms by
+    kernel, idle share against the run's unprofiled median) and keep each
+    idle share in ``res``."""
+    for kind, host_key, unit in (("decode", "decode_step_ms", f"decode step of {ZOO_SLOTS} slots"),
+                                 ("prefill", "prefill_ms", "prefill of one prompt")):
+        prof = res.get(f"{kind}_device")
+        if prof is None:
+            log(f"    {what} {unit} device time by kernel: not measured (no device time)")
+            continue
+        total, top = prof
+        host = res[host_key]
+        res[f"{kind}_idle_share"] = 1 - total / host
+        log(f"    one {what} {unit} (torch.profiler, after a discarded warm-up call): {total:.4f} ms of "
+            f"device time against the {host:.4f} ms call (median, unprofiled): the card idles "
+            f"{100 * (1 - total / host):.1f} %; by kernel:")
+        for key, ms, calls in top:
+            log(f"      {ms:9.4f} ms  x{calls:<4g} {key[:90]}")
 
 
 def profile_steps(fn, steps=1, top=12):
@@ -1948,18 +2002,7 @@ def run_zoo(device, card):
             f"buckets, {res['metrics']['prefill_cache_hits']} hits  ({card})")
         if any(res["launches"].values()):
             raise AssertionError(f"{name}: the zoo's path launched {res['launches']}")
-    prof = postures["bf16/bf16-kv"]["decode_device"]
-    if prof is None:
-        log("    bf16/bf16-kv decode step device time by kernel: not measured (no device time)")
-    else:
-        total, top = prof
-        step = postures["bf16/bf16-kv"]["decode_step_ms"]
-        postures["bf16/bf16-kv"]["idle_share"] = 1 - total / step
-        log(f"    one bf16/bf16-kv decode step of {ZOO_SLOTS} slots (torch.profiler, after a "
-            f"discarded warm-up step): {total:.4f} ms of device time against the {step:.4f} ms "
-            f"step (median, unprofiled): the card idles {100 * (1 - total / step):.1f} %; by kernel:")
-        for key, ms, calls in top:
-            log(f"      {ms:9.4f} ms  x{calls:<4g} {key[:90]}")
+    log_profiles(postures["bf16/bf16-kv"], "bf16/bf16-kv")
     rec["full"] = dict(n_params=n_params, postures=postures, earlier_phases_bytes=before)
 
     # (b) the same weights, 2 of 28 layers, card against the CPU
@@ -2053,16 +2096,22 @@ F32_PEAK_FLOPS = 67e12
 
 def train_step_flops(cfg, batch, seq):
     """Matmul FLOPs of one training step of a decoder ``cfg`` (GQA, gated
-    MLP, tied readout): the forward's 2 · weights · tokens over every layer
-    projection and the readout over the padded vocab, plus 4 · B · H · S² ·
-    dh of attention a layer (one query and one key chunk: every score is
-    computed, the causal mask applied after); the backward twice the
+    MLP) or an RWKV6 ``cfg``: the forward's 2 · weights · tokens over every
+    layer projection and the readout over the padded vocab, plus, for the
+    decoder, 4 · B · H · S² · dh of attention a layer (one query and one key
+    chunk: every score is computed, the causal mask applied after; RWKV6's
+    scan, under 1 % of its layer, is left out); the backward twice the
     forward; and ``nothing_saveable``'s second forward of every layer."""
     from repro_torch.models.model import padded_vocab
 
     d, hd, tokens = cfg.d_model, cfg.hd(), batch * seq
-    weights = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * cfg.d_ff
-    layer = 2 * weights * tokens + 4 * batch * cfg.n_heads * seq * seq * hd
+    if cfg.family == "rwkv6":  # r, k, v, g, o; the LoRAs; channel-mix k, v, r
+        r = cfg.ssm.lora_rank
+        weights = 5 * d * d + 10 * d * r + 2 * d * r + 2 * d * cfg.d_ff + d * d
+        layer = 2 * weights * tokens
+    else:
+        weights = d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2 + 3 * d * cfg.d_ff
+        layer = 2 * weights * tokens + 4 * batch * cfg.n_heads * seq * seq * hd
     forward = cfg.n_layers * layer + 2 * d * padded_vocab(cfg) * tokens
     return 3 * forward + cfg.n_layers * layer
 
@@ -2074,10 +2123,11 @@ def _finite(x, what):
         raise AssertionError(f"{what}: non-finite value {float(x)}")
 
 
-def train_full(device, card, qat):
-    """(a): ``train(qwen3_1_7b, reduced=False)`` on the card, per step loss,
-    grad norm, lr, host step ms, tokens/s and peak memory; returns the run's
-    record and its (params, opt) for the profiled step."""
+def train_full(device, card, qat, arch="qwen3_1_7b", steps_n=TRAIN_STEPS):
+    """(a): ``train(arch, reduced=False)`` on the card for ``steps_n`` steps
+    (phase 12 (c) trains rwkv6_3b so), per step loss, grad norm, lr, host
+    step ms, tokens/s and peak memory; returns the run's record and its
+    (params, opt) for the profiled step."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2098,9 +2148,9 @@ def train_full(device, card, qat):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t = time.perf_counter()
-    params, opt, _ = train("qwen3_1_7b", steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+    params, opt, _ = train(arch, steps=steps_n, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                            reduced=False, qat=qat, schedule="warmup_cosine", seed=0,
-                           log_every=TRAIN_STEPS, device=device, on_step=on_step)
+                           log_every=steps_n, device=device, on_step=on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = launch_counts()
@@ -2114,7 +2164,7 @@ def train_full(device, card, qat):
                resident_bytes=rest - before, peak_bytes=torch.cuda.max_memory_allocated() - before,
                median_step_ms=_median([s["step_ms"] for s in steps[1:]]), launches=launches)
     rec["median_tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / rec["median_step_ms"] * 1e3
-    rec["step_flops"] = train_step_flops(get_config("qwen3_1_7b"), TRAIN_BATCH, TRAIN_SEQ)
+    rec["step_flops"] = train_step_flops(get_config(arch), TRAIN_BATCH, TRAIN_SEQ)
     rec["bound_ms"] = rec["step_flops"] / F32_PEAK_FLOPS * 1e3  # the fake-quant's elementwise work aside
     rec["achieved_tflops"] = rec["step_flops"] / rec["median_step_ms"] / 1e9
     if torch.cuda.max_memory_allocated() >= torch.cuda.get_device_properties(0).total_memory:
@@ -2124,17 +2174,17 @@ def train_full(device, card, qat):
         log(f"    {name:5s} step {s['step']}: loss {s['loss']:.4f}, grad norm {s['grad_norm']:.4f}, lr "
             f"{s['lr']:.3e}; {s['step_ms']:.1f} ms, {s['tokens_per_s']:.0f} tokens/s; peak "
             f"{(s['peak_bytes'] - before) / 2**30:.2f} GiB over earlier phases  ({card})")
-    log(f"    {name:5s} median step (steps 1-{TRAIN_STEPS - 1}) {rec['median_step_ms']:.1f} ms = "
+    log(f"    {name:5s} median step (steps 1-{steps_n - 1}) {rec['median_step_ms']:.1f} ms = "
         f"{rec['median_tokens_per_s']:.0f} tokens/s, {rec['step_flops']:.3e} matmul FLOP a step: "
         f"{rec['achieved_tflops']:.1f} TFLOP/s, {rec['bound_ms']:.1f} ms at the float32 peak "
         f"({100 * rec['bound_ms'] / rec['median_step_ms']:.1f} % of it); params + AdamW moments held at rest "
         f"{rec['resident_bytes'] / 2**30:.2f} GiB, peak {rec['peak_bytes'] / 2**30:.2f} GiB over "
-        f"earlier phases ({before / 2**30:.2f} GiB); {TRAIN_STEPS} steps in {wall:.1f} s; "
+        f"earlier phases ({before / 2**30:.2f} GiB); {steps_n} steps in {wall:.1f} s; "
         f"hand-written kernel launches: 0  ({card})")
     return rec, params, opt
 
 
-def profile_train_step(params, opt, device, step_ms):
+def profile_train_step(params, opt, device, step_ms, arch="qwen3_1_7b"):
     """One plain training step of (a)'s shape under ``torch.profiler`` after
     a discarded warm-up step, on (a)'s trained weights."""
     import torch
@@ -2144,7 +2194,7 @@ def profile_train_step(params, opt, device, step_ms):
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.launch.steps import make_train_step
 
-    cfg = get_config("qwen3_1_7b")
+    cfg = get_config(arch)
     step = make_train_step(cfg, ShapeConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH),
                            compute_dtype=torch.float32, q_chunk=TRAIN_SEQ, kv_chunk=TRAIN_SEQ,
                            sched_kwargs=dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS))
@@ -2526,6 +2576,200 @@ def mesh_checkpoint(mesh, device, card, params):
     return dict(values=n, save_s=save_s, restore_s=restore_s)
 
 
+#: (d): ``tests/test_torch_mesh.py``'s 4-rank gloo train and serve cases,
+#: in spawned processes on CPU tensors under the card's torch (this copy
+#: imports only ``repro_torch``; the test file imports ``repro`` too).
+#: Held to the test's bounds: train loss within MESH_GLOO_LOSS_TOL, grad
+#: norm within MESH_TOL relative, params within MESH_GLOO_PARAM_TOL; served
+#: logits within MESH_TOL · max(1, max |one device|).
+MESH_WORLD, MESH_GLOO_LOSS_TOL, MESH_GLOO_PARAM_TOL = 4, 1e-3, 2e-4
+MESH_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np, torch, torch.distributed as dist
+    torch.set_num_threads(1)
+    mode, rank, world, store, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=world)
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as SP, steps as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cfg = get_config("qwen3_1_7b", reduced=True)
+    try:
+        mesh = make_test_mesh((2, 2), device_type="cpu")
+        if mode == "train":
+            sc = ShapeConfig("t", "train", 32, 4, microbatches=2)
+            step = S.make_train_step(cfg, sc, compute_dtype=torch.float32, q_chunk=16, kv_chunk=16)
+            batch = {k: torch.from_numpy(v) for k, v in Pipeline(cfg, DataConfig(0)).batch(0, 4, 32).items()}
+            params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+            with sh.use_mesh(mesh):
+                params = sh.distribute(params, SP.params_shardings(SP.params_specs(cfg), mesh))
+                opt = adamw.init(params)
+                batch = sh.distribute(batch, SP.batch_shardings(batch, mesh))
+                params, opt, m = step(params, opt, batch)
+            # full_tensor() is a collective: every rank gathers, rank 0 writes
+            arrays = {f"leaf{i}": a.full_tensor().numpy() for i, a in enumerate(tree_leaves(params))}
+            arrays.update(loss=m["loss"].full_tensor().numpy(), gnorm=m["grad_norm"].full_tensor().numpy())
+            if rank == 0:
+                np.savez(out, **arrays)
+        else:  # serve
+            params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+            toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 24)).astype(np.int32))
+            prefill = S.make_prefill_step(cfg, compute_dtype=torch.float32, q_chunk=8, kv_chunk=8)
+            decode = S.make_decode_step(cfg, compute_dtype=torch.float32)
+            with sh.use_mesh(mesh):
+                params = sh.distribute(params, SP.params_shardings(SP.params_specs(cfg), mesh))
+                cache = sh.distribute(M.init_cache(cfg, 4, 32, device="cpu"),
+                                      SP.cache_shardings(SP.cache_specs(cfg, 4, 32), mesh))
+                batch = {"tokens": toks[:, :16]}
+                logits, cache = prefill(params, sh.distribute(batch, SP.batch_shardings(batch, mesh)), cache)
+                outs = [logits.full_tensor().numpy()]
+                for i in range(3):
+                    t_in = {"tokens": toks[:, 16 + i:17 + i], "pos": torch.full((4,), 16 + i, dtype=torch.int32)}
+                    t_in = sh.distribute(t_in, SP.batch_shardings(t_in, mesh))
+                    logits, cache = decode(params, t_in["tokens"], t_in["pos"], cache)
+                    outs.append(logits.full_tensor().numpy())
+            if rank == 0:
+                np.savez(out, logits=np.stack(outs))
+    finally:
+        dist.destroy_process_group()
+""")
+
+
+def _spawn_mesh_workers(mode, out):
+    """MESH_WORLD gloo processes of MESH_WORKER (a file store under
+    MESH_DIR, the loopback interface, one thread each); every one is
+    reaped, and any failure raises with the workers' output."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    store = os.path.join(MESH_DIR, f"store_{mode}")
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_WORKER, mode, str(rank), str(MESH_WORLD), store, out],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(MESH_WORLD)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"(d) the {mode} workers failed:\n" + "\n".join(logs)[-6000:])
+
+
+def mesh_gloo(card):
+    """(d): the 4-rank gloo train step and prefill + 3 decode steps on a
+    (2, 2) mesh of CPU processes, held against the same steps on one CPU
+    device in this process."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    t = time.perf_counter()
+    try:
+        out = {mode: os.path.join(MESH_DIR, f"{mode}.npz") for mode in ("train", "serve")}
+        for mode in out:
+            _spawn_mesh_workers(mode, out[mode])
+        got = {mode: dict(np.load(path)) for mode, path in out.items()}
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t
+    cfg = get_config("qwen3_1_7b", reduced=True)
+    step = steps.make_train_step(cfg, ShapeConfig("t", "train", 32, 4, microbatches=2),
+                                 compute_dtype=torch.float32, q_chunk=16, kv_chunk=16)
+    batch = {k: torch.from_numpy(v) for k, v in Pipeline(cfg, DataConfig(0)).batch(0, 4, 32).items()}
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    p1, _, m1 = step(params, adamw.init(params), batch)
+    g = got["train"]
+    loss_err = abs(float(m1["loss"]) - float(g["loss"]))
+    gnorm_err = abs(float(m1["grad_norm"]) - float(g["gnorm"])) / float(m1["grad_norm"])
+    param_err = max(float(np.abs(g[f"leaf{i}"] - a.numpy()).max()) for i, a in enumerate(tree_leaves(p1)))
+    if not (loss_err < MESH_GLOO_LOSS_TOL and gnorm_err <= MESH_TOL and param_err < MESH_GLOO_PARAM_TOL):
+        raise AssertionError(f"(d) the 4-rank train step differs from one device: loss {loss_err:.3g}, "
+                             f"grad norm {gnorm_err:.3g} relative, params {param_err:.3g}")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 24)).astype(np.int32))
+    logits, cache = steps.make_prefill_step(cfg, compute_dtype=torch.float32, q_chunk=8, kv_chunk=8)(
+        params, {"tokens": toks[:, :16]}, M.init_cache(cfg, 4, 32, device="cpu"))
+    decode = steps.make_decode_step(cfg, compute_dtype=torch.float32)
+    want = [logits.numpy()]
+    for i in range(3):
+        logits, cache = decode(params, toks[:, 16 + i:17 + i], torch.full((4,), 16 + i, dtype=torch.int32), cache)
+        want.append(logits.numpy())
+    real = np.stack(want)[..., :cfg.vocab_size]
+    serve_err = float(np.abs(got["serve"]["logits"][..., :cfg.vocab_size] - real).max()) / max(1.0, float(np.abs(real).max()))
+    if not serve_err <= MESH_TOL:
+        raise AssertionError(f"(d) the 4-rank prefill + decode differ from one device by {serve_err:.3g}")
+    log(f"  (d) {MESH_WORLD} gloo ranks on a (2, 2) mesh of CPU processes (torch {torch.__version__}), "
+        f"{cfg.name} at reduced(): a train step of 2 microbatches against one device: loss |d| {loss_err:.3g} "
+        f"(< {MESH_GLOO_LOSS_TOL}), grad norm {gnorm_err:.3g} relative (<= {MESH_TOL}), params max |d| "
+        f"{param_err:.3g} (< {MESH_GLOO_PARAM_TOL}); prefill + 3 decode steps: logits {serve_err:.3g} · max "
+        f"(<= {MESH_TOL}); the two spawns took {wall:.1f} s")
+    return dict(world=MESH_WORLD, loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err, param_abs_err=param_err,
+                serve_rel_err=serve_err, wall_s=wall)
+
+
+def mesh_accounting(mesh, device, card):
+    """(e): the dry-run's byte accounting (``launch.dryrun._Accounting``)
+    over one train step on the one-rank mesh, beside the rise of the
+    allocator's peak over the same step, at full width and at reduced()
+    (after a warm-up step each).  No gate: the ratio is a record."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import dryrun, specs, steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    rows = {}
+    for name, reduced in (("full", False), ("reduced", True)):
+        cfg = get_config("qwen3_1_7b", reduced=reduced)
+        step = steps.make_train_step(cfg, ShapeConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH),
+                                     compute_dtype=torch.float32, q_chunk=TRAIN_SEQ, kv_chunk=TRAIN_SEQ,
+                                     sched_kwargs=dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS))
+        data = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                                        generator=torch.Generator().manual_seed(3))}
+        data["labels"] = data["tokens"]
+        with shlib.use_mesh(mesh):
+            params = M.init_params(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+            params = shlib.distribute(params, specs.params_shardings(params, mesh))
+            opt = adamw.init(params)
+            batch = shlib.distribute({k: v.to(device) for k, v in data.items()},
+                                     specs.batch_shardings(data, mesh))
+            params, opt, _ = step(params, opt, batch)  # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            acct = dryrun._Accounting((params, opt, batch))
+            with acct:
+                params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            _finite(m["loss"].full_tensor(), f"(e) {name} loss")
+        rows[name] = dict(accounted_bytes=acct.peak, allocator_rise_bytes=rise, ratio=acct.peak / rise)
+        log(f"  (e) {cfg.name} {name}, one train step (batch {TRAIN_BATCH} x seq {TRAIN_SEQ}) on the mesh: the "
+            f"dry-run's accounting peak {acct.peak / 2**30:.3f} GiB against the allocator's peak rise "
+            f"{rise / 2**30:.3f} GiB: ratio {acct.peak / rise:.3f}  ({card})")
+        del params, opt, batch, acct
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_mesh(device, card, plain):
     """Phase 11: a one-rank NCCL process group in this process and a (1, 1)
     ("data", "model") mesh on the card; (a) training, (b) serving, (c)
@@ -2546,9 +2790,229 @@ def run_mesh(device, card, plain):
         rec["checkpoint"] = mesh_checkpoint(mesh, device, card, params)
         del params
         torch.cuda.empty_cache()
+        rec["gloo"] = mesh_gloo(card)
+        rec["accounting"] = mesh_accounting(mesh, device, card)
     finally:
         dist.destroy_process_group()
     launches = {k: rec["train"]["launches"][k] + rec["serve"]["launches"][k] for k in rec["train"]["launches"]}
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent families at full width
+# ---------------------------------------------------------------------------
+
+#: (a): rwkv6_3b served on ZOO_SLOTS slots: requests, prompt tokens (one
+#: prefill bucket), new tokens each.
+RECUR_ARCH = "rwkv6_3b"
+RECUR_REQUESTS, RECUR_PROMPT, RECUR_NEW_TOKENS = 8, 512, 16
+#: (b): one layer's full shape (B, S, H, D).  The chunked WKV6 against its
+#: per-step plain version on the card: every value within RECUR_TOL ·
+#: max(1, max |plain|) — float32 sums in other orders; the CPU tests
+#: measure ≤ 4e-7 against repro at D = 16 and S ≤ 256, and D = 64, S = 512
+#: sum more terms.
+RECUR_LAYER = (4, 512, 40, 64)
+RECUR_TOL = 1e-5
+#: (b): the full widths cut to ZOO_CUT_LAYERS layers, card against the CPU
+#: on a prompt of two rematerialization chunks.
+RECUR_CUT_BATCH, RECUR_CUT_SEQ = 2, 256
+#: (c): steps of train(rwkv6_3b, reduced=False) at TRAIN_BATCH x TRAIN_SEQ.
+RECUR_TRAIN_STEPS = 3
+
+
+def _sync_ms(fn, reps=3):
+    """Median host ms of ``reps`` synchronised calls of ``fn`` after one
+    discarded call; returns (ms, the last call's result)."""
+    import torch
+
+    times = []
+    out = fn()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return _median(times), out
+
+
+def serve_chunked_vs_plain(params, cfg, prompt, card):
+    """(a): one full-width prefill of ``prompt`` and one decode step of
+    ZOO_SLOTS slots (each slot holding that prefill's state) through the
+    engine's adapter, with the chunked WKV6 and with its per-step plain
+    version swapped in: host ms of each, and their logits within ZOO_TOL."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import rwkv6
+    from repro_torch.serving.engine import OpaqueModelAdapter
+
+    adapter = OpaqueModelAdapter(params, cfg)
+    padded = np.asarray(prompt, np.int32)[None]
+    plen = padded.shape[1]
+    _, pcache = adapter.prefill(padded, plen, plen + 8)
+    cache = adapter.init_cache(ZOO_SLOTS, plen + 8)
+    for slot in range(ZOO_SLOTS):
+        cache = adapter.scatter(cache, slot, pcache)
+    del pcache
+    toks = np.asarray(prompt[-ZOO_SLOTS:], np.int32)[:, None]
+    pos = np.full((ZOO_SLOTS,), plen, np.int32)
+
+    def prefill():
+        return adapter.prefill(padded, plen, plen + 8)[0]
+
+    def decode():  # the adapter's decode returns a new cache; ``cache`` stays as it is
+        return adapter.decode(toks, pos, cache)[0]
+
+    rec, out = {}, {}
+    chunked = rwkv6._wkv_scan
+    for name, scan in (("chunked", chunked), ("plain", rwkv6.wkv_scan_plain)):
+        rwkv6._wkv_scan = scan
+        try:
+            rec[f"{name}_ms"], out[name, "prefill"] = _sync_ms(prefill)
+            rec[f"{name}_decode_ms"], out[name, "decode"] = _sync_ms(decode, reps=5)
+        finally:
+            rwkv6._wkv_scan = chunked
+    for what in ("prefill", "decode"):
+        got, want = out["chunked", what], out["plain", what]
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        if not (bool(torch.isfinite(got).all()) and err <= ZOO_TOL):
+            raise AssertionError(f"(a) the chunked {what}'s logits differ from the plain scan's by {err:.3g}")
+        rec[f"{what}_logits_rel_err"] = err
+    rec["ratio"] = rec["plain_ms"] / rec["chunked_ms"]
+    rec["decode_ratio"] = rec["plain_decode_ms"] / rec["chunked_decode_ms"]
+    log(f"    one prefill of {plen} tokens: chunked WKV6 {rec['chunked_ms']:.1f} ms, per-step plain scan "
+        f"{rec['plain_ms']:.1f} ms ({rec['ratio']:.2f}x; medians of 3, host clock); logits max |d| "
+        f"{rec['prefill_logits_rel_err']:.3g} · max (<= {ZOO_TOL})  ({card})")
+    log(f"    one decode step of {ZOO_SLOTS} slots: chunked WKV6 {rec['chunked_decode_ms']:.2f} ms, per-step "
+        f"plain scan {rec['plain_decode_ms']:.2f} ms ({rec['decode_ratio']:.3f}x; medians of 5, host clock); "
+        f"logits max |d| {rec['decode_logits_rel_err']:.3g} · max (<= {ZOO_TOL})  ({card})")
+    return rec
+
+
+def wkv_layer_check(device, card):
+    """(b): the chunked ``_wkv_scan`` against ``wkv_scan_plain`` on the card
+    at RECUR_LAYER, seeded (decays ``-exp(x)``, x ~ N(0, 1)): outputs,
+    final state and the gradients of all six inputs; each timed forward
+    and forward + backward."""
+    import torch
+
+    from repro_torch.models import rwkv6
+
+    b, s, h, d = RECUR_LAYER
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    ins = [rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d), -torch.exp(rnd(b, s, h, d)),
+           rnd(h, d) * 0.5, rnd(b, h, d, d)]
+    gy, gs = rnd(b, s, h, d), rnd(b, h, d, d)
+
+    def both(fn):
+        xs = [a.clone().requires_grad_() for a in ins]
+        y, st = fn(*xs)
+        grads = torch.autograd.grad((y * gy).sum() + (st * gs).sum(), xs)
+        return [y.detach(), st.detach(), *grads]
+
+    def forward(fn):
+        with torch.no_grad():
+            return fn(*ins)
+
+    rec = {}
+    for name, fn in (("chunked", rwkv6._wkv_scan), ("plain", rwkv6.wkv_scan_plain)):
+        rec[f"{name}_fwd_ms"], _ = _sync_ms(lambda: forward(fn))
+        rec[f"{name}_fwd_bwd_ms"], rec[name] = _sync_ms(lambda: both(fn))
+    names = ("y", "state", "dr", "dk", "dv", "dlw", "du", "dstate")
+    errs = {}
+    for n, g, w in zip(names, rec.pop("chunked"), rec.pop("plain")):
+        errs[n] = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+        if not (bool(torch.isfinite(g).all()) and errs[n] <= RECUR_TOL):
+            raise AssertionError(f"(b) chunked WKV6 {n} differs from the plain scan by {errs[n]:.3g}")
+    rec["rel_err"] = errs
+    log(f"  (b) chunked WKV6 against its per-step plain version at (B, S, H, D) = {RECUR_LAYER}: outputs, "
+        f"state and the gradients of r, k, v, lw, u, state max |d| / max(1, max |plain|) "
+        f"{max(errs.values()):.3g} (<= {RECUR_TOL}); forward {rec['chunked_fwd_ms']:.2f} ms against "
+        f"{rec['plain_fwd_ms']:.2f} ms, forward + backward {rec['chunked_fwd_bwd_ms']:.2f} ms against "
+        f"{rec['plain_fwd_bwd_ms']:.2f} ms (medians of 3, host clock)  ({card})")
+    return rec
+
+
+def run_recurrent(device, card):
+    """Phase 12: rwkv6_3b at its full config (a) served, (b) its scan and
+    its 2-layer cut against their references, (c) trained.  Returns the
+    phase's record and the launches of its served and training runs (none
+    may launch a hand-written kernel)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    rec = {}
+    cfg = get_config(RECUR_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = M.init_params(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+    n_params = sum(a.numel() for _, a in _leaves(params))
+    log(f"  (a) {cfg.name} full config: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.ssm.head_dim} heads of {cfg.ssm.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {n_params:,} float32 parameters; {RECUR_REQUESTS} greedy requests of "
+        f"{RECUR_PROMPT} tokens, {RECUR_NEW_TOKENS} new tokens each, {ZOO_SLOTS} slots")
+    t = time.perf_counter()
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, (RECUR_PROMPT,)).astype(np.int32) for _ in range(RECUR_REQUESTS)]
+    res = serve_posture(params, cfg, prompts, profile=True, new_tokens=RECUR_NEW_TOKENS)
+    res.pop("generated")
+    if any(res["launches"].values()):
+        raise AssertionError(f"(a) serving {cfg.name} launched {res['launches']}")
+    log(f"    {res['tokens_per_s']:.1f} tokens/s ({res['tokens']} tokens in {res['wall_s']:.2f} s); prefill "
+        f"{res['prefill_ms']:.2f} ms, decode step {res['decode_step_ms']:.2f} ms (medians, {res['decode_steps']} "
+        f"steps of {ZOO_SLOTS} slots); peak {(res['peak_bytes'] - before) / 2**30:.2f} GiB over the "
+        f"{(res['resident_bytes'] - before) / 2**30:.2f} GiB it holds at rest  ({card})")
+    log_profiles(res, cfg.name)
+    res["chunked_vs_plain"] = serve_chunked_vs_plain(params, cfg, prompts[0], card)
+    rec["serve"] = dict(n_params=n_params, earlier_phases_bytes=before, phase_wall_s=time.perf_counter() - t, **res)
+    log(f"    (a) took {rec['serve']['phase_wall_s']:.1f} s")
+
+    rec["scan"] = wkv_layer_check(device, card)
+    cut = dataclasses.replace(cfg, n_layers=ZOO_CUT_LAYERS)
+    p2 = {**params, "layers": M.tree_map(lambda _, a: a[:ZOO_CUT_LAYERS].clone(), params["layers"])}
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    steps = card_vs_cpu(p2, cut, zoo_batch(cut, np.random.default_rng(13), RECUR_CUT_BATCH, RECUR_CUT_SEQ),
+                        ZOO_DECODE_STEPS, False, device)
+    rec["cut"] = steps
+    log(f"  (b) {cfg.name}, {ZOO_CUT_LAYERS} of {cfg.n_layers} layers at full widths, batch {RECUR_CUT_BATCH} x "
+        f"{RECUR_CUT_SEQ}: prefill + {ZOO_DECODE_STEPS} decode steps, card vs CPU max |d| / max(1, max |CPU|) "
+        f"{max(e for e, _, _ in steps):.3g} (<= {ZOO_TOL}); greedy tokens equal at "
+        f"{sum(q for _, _, q in steps)} of {sum(c for _, c, _ in steps)} clear rows "
+        f"({time.perf_counter() - t:.1f} s)")
+    del p2
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    log(f"  (c) {cfg.name} full config trained by repro_torch.launch.train.train: float32, TF32 off, remat "
+        f"{cfg.remat_policy}, warmup_cosine, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {RECUR_TRAIN_STEPS} steps")
+    rec["train"], params, opt = train_full(device, card, qat=False, arch=RECUR_ARCH, steps_n=RECUR_TRAIN_STEPS)
+    prof = profile_train_step(params, opt, device, rec["train"]["median_step_ms"], arch=RECUR_ARCH)
+    rec["train"]["profile"] = prof
+    if prof is None:
+        log("    one training step device time by kernel: not measured (no device time)")
+    else:
+        log(f"    one training step (torch.profiler, after a discarded warm-up step): {prof['device_ms']:.1f} ms "
+            f"of device time against the {prof['step_ms']:.1f} ms step (median, unprofiled): the card idles "
+            f"{100 * prof['idle_share']:.1f} %; by kernel  ({card}):")
+        for key, ms, calls in prof["top"]:
+            log(f"      {ms:10.3f} ms  x{calls:<5g} {key[:90]}")
+    del params, opt
+    torch.cuda.empty_cache()
+    log(f"    (c) took {time.perf_counter() - t:.1f} s")
+    launches = {k: res["launches"][k] + rec["train"]["launches"][k] for k in res["launches"]}
     return rec, launches
 
 
@@ -2613,23 +3077,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/12] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/13] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/12] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/13] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/12] kernels against their plain versions (tolerance 0)")
+    log("[3/13] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/12] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    log(f"[4/13] token path: compiled token path, backend cuda vs backend ref  ({card})")
     perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
@@ -2652,7 +3116,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/12] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/13] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -2665,7 +3129,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/12] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/13] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -2678,7 +3142,7 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
-    log(f"[7/12] autotune: the token path tuned on the card (cold, then warm from the tile "
+    log(f"[7/13] autotune: the token path tuned on the card (cold, then warm from the tile "
         f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
         f"server's background; every output against the ref backend  ({card})")
     tuning, launches_tune = run_tuning(device, ref, card)
@@ -2686,7 +3150,7 @@ def main() -> int:
         f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
         f"candidates measured between batches included: {tuning['slice_a']['launches']}")
 
-    log(f"[8/12] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
+    log(f"[8/13] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
         f"by {FLEET_REPLICAS} replicas warm-started from its artifact behind a ShardedRouter, one "
         f"replica failing; phase 4's decode checkpointed through a crash; the generic pooling ops  "
         f"({card})")
@@ -2703,7 +3167,7 @@ def main() -> int:
         f"{launches_8['qmatmul_packed']}, qattention {launches_8['qattention']}; phase 8 took "
         f"{time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[9/12] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
+    log(f"[9/13] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
         f"adapter in three postures; its weights cut to {ZOO_CUT_LAYERS} layers and every other "
         f"architecture at reduced() on the card against the CPU; QuantizedLinear on the qmatmul "
         f"kernel  ({card})")
@@ -2712,7 +3176,7 @@ def main() -> int:
     log(f"  launches in phase 9's served run (QuantizedLinear, backend cuda): {launches_zoo}; "
         f"phase 9 took {time.perf_counter() - t:.1f} s")
 
-    log(f"[10/12] training: qwen3_1_7b at its full config trained on the card by "
+    log(f"[10/13] training: qwen3_1_7b at its full config trained on the card by "
         f"repro_torch.launch.train, plain and with QAT, one step profiled; its weights cut to "
         f"{TRAIN_CUT_LAYERS} layers, card vs CPU; resume; grad_compress  ({card})")
     t = time.perf_counter()
@@ -2720,7 +3184,7 @@ def main() -> int:
     log(f"  launches in phase 10's training runs: {launches_train} (training computes in plain "
         f"PyTorch, as repro trains in XLA); phase 10 took {time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[11/12] mesh: a one-rank NCCL process group and a (1, 1) (data, model) DeviceMesh on the card; "
+    log(f"[11/13] mesh: a one-rank NCCL process group and a (1, 1) (data, model) DeviceMesh on the card; "
         f"qwen3_1_7b at its full config trained on it ({MESH_STEPS} steps, against phase 10), served cut to "
         f"{ZOO_CUT_LAYERS} layers (against the unsharded steps), checkpointed from it and restored  ({card})")
     t = time.perf_counter()
@@ -2728,9 +3192,21 @@ def main() -> int:
     log(f"  launches in phase 11's mesh runs: {launches_mesh} (the sharded steps compute in plain PyTorch); "
         f"phase 11 took {time.perf_counter() - t:.1f} s  ({card})")
 
+    log(f"[12/13] recurrent families at full width: {RECUR_ARCH} at its published config served by "
+        f"ServeEngine's default adapter ({RECUR_REQUESTS} requests of {RECUR_PROMPT} tokens), its chunked "
+        f"WKV6 against the per-step plain version at one layer's shape, cut to {ZOO_CUT_LAYERS} layers card vs "
+        f"CPU, trained {RECUR_TRAIN_STEPS} steps  ({card})")
+    t = time.perf_counter()
+    recurrent, launches_rec = run_recurrent(device, card)
+    if any(launches_rec.values()):
+        raise AssertionError(f"phase 12 launched hand-written kernels: {launches_rec}")
+    log(f"  launches in phase 12's served and training runs: {launches_rec} (the recurrent families compute in "
+        f"plain PyTorch, as repro computes them in XLA); phase 12 took {time.perf_counter() - t:.1f} s  ({card})")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
                 + launches_tune.get(k, 0) + launches_8.get(k, 0) + launches_zoo.get(k, 0)
-                + launches_train.get(k, 0) + launches_mesh.get(k, 0) for k in launches_tok}
+                + launches_train.get(k, 0) + launches_mesh.get(k, 0) + launches_rec.get(k, 0)
+                for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
     # at the decode shapes (qattention: one launch per head)
@@ -2765,10 +3241,11 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[12/12] summary: launches are summed over the served runs of phases 4-11 (phase 7: "
+    log("[13/13] summary: launches are summed over the served runs of phases 4-12 (phase 7: "
         "the tuned and the warm-started token path's drives, no tuning candidate; phase 8: "
         "the fleet's rounds and failover wave and the resilient decode; phase 9: "
-        "QuantizedLinear on backend cuda; phase 10's training runs and phase 11's mesh runs launch none); "
+        "QuantizedLinear on backend cuda; phase 10's training runs, phase 11's mesh runs and phase 12's "
+        "recurrent runs launch none); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
@@ -2785,11 +3262,12 @@ def main() -> int:
                    "slice": perf, "slice_a": perf_a,
                    "slice_b": perf_b, "autotune": tuning, "fleet": fleet,
                    "checkpoint": checkpoint, "pooling": pooling, "zoo": zoo, "training": training,
-                   "mesh": mesh,
+                   "mesh": mesh, "recurrent": recurrent,
                    "launches": {"token_path": launches_tok, "slice_a": launches_a,
                                 "slice_b": launches_b, "autotune": launches_tune,
                                 "fleet_and_checkpoints": launches_8, "zoo": launches_zoo,
-                                "training": launches_train, "mesh": launches_mesh},
+                                "training": launches_train, "mesh": launches_mesh,
+                                "recurrent": launches_rec},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

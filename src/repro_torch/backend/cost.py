@@ -30,26 +30,36 @@ from ..kernels import qmatmul as _qmm
 
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
-    """One card's peak rates and the limits a tiling must fit."""
+    """One card's peak rates, the limits a tiling must fit, and the fleet
+    the roofline fraction divides by."""
 
     name: str
     peak_int8_ops: float  # operations/s, int8 tensor cores, dense
     hbm_bw: float  # bytes/s
     sms: int  # streaming multiprocessors
     smem_per_block: int  # bytes of shared memory one block may opt in to
+    peak_bf16_flops: float  # FLOP/s, bf16 tensor cores, dense
+    link_bw: float  # bytes/s into one card over NVLink, one direction
+    chips: int  # cards in the reference (single-pod) fleet
 
 
 #: NVIDIA H100 SXM (data sheet, dense rates at the 700 W limit): 3.35 TB/s
-#: of HBM3, 1,979 int8 TOP/s, 132 SMs, and the 227 KB of shared memory a
-#: block may opt in to (``kernels/qattention.py::SMEM_BYTES`` is that less
-#: the attention kernel's static part).  The cost model reads it directly:
-#: the port runs on this one card.
+#: of HBM3, 1,979 int8 TOP/s, 989 bf16 TFLOP/s, 132 SMs, and the 227 KB of
+#: shared memory a block may opt in to (``kernels/qattention.py::SMEM_BYTES``
+#: is that less the attention kernel's static part).  NVLink: the sheet's
+#: 900 GB/s counts both directions; a collective's bytes arrive over one,
+#: so the collective term reads 450 GB/s.  The fleet is the dry-run's
+#: single-pod mesh, 16 × 16 = 256 cards (``launch/mesh.py``).  The cost
+#: model reads it directly: the port runs on this one card.
 H100_SXM = HardwareSpec(
     name="h100_sxm",
     peak_int8_ops=1979e12,
     hbm_bw=3.35e12,
     sms=132,
     smem_per_block=227 * 1024,
+    peak_bf16_flops=989e12,
+    link_bw=450e9,
+    chips=256,
 )
 
 
@@ -57,10 +67,27 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def roofline_terms(ops: float, nbytes: float) -> Dict[str, float]:
-    """The roofline terms of a launch (seconds): ``T_ops = ops / peak`` at
-    the int8 tensor-core rate and ``T_mem = bytes / HBM bandwidth``."""
-    return {"t_ops_s": ops / H100_SXM.peak_int8_ops, "t_mem_s": nbytes / H100_SXM.hbm_bw}
+def roofline_terms(ops: float, nbytes: float, coll_bytes: float = 0.0, *,
+                   hw: HardwareSpec = H100_SXM, peak: float = 0.0) -> Dict[str, float]:
+    """The roofline terms of a launch or a step on one card (seconds):
+
+        T_ops = ops / peak      T_mem = bytes / HBM bandwidth
+        T_coll = collective bytes / NVLink bandwidth (one direction)
+
+    ``peak`` defaults to the int8 tensor-core rate (the kernels' and the
+    tile search's convention); pass ``hw.peak_bf16_flops`` for a bf16
+    model step."""
+    return {"t_ops_s": ops / (peak or hw.peak_int8_ops), "t_mem_s": nbytes / hw.hbm_bw,
+            "t_coll_s": coll_bytes / hw.link_bw}
+
+
+def roofline_fraction(model_flops: float, step_time_s: float, *, hw: HardwareSpec = H100_SXM) -> float:
+    """Model-useful FLOP/s at ``step_time_s`` as a fraction of the fleet's
+    bf16 peak (``hw.chips`` cards), as ``repro``'s roofline report divides;
+    0 for a step time of 0."""
+    if not step_time_s:
+        return 0.0
+    return (model_flops / step_time_s) / (hw.chips * hw.peak_bf16_flops)
 
 
 def waves(blocks: int) -> int:

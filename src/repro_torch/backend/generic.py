@@ -134,12 +134,19 @@ def _t_slice(attrs, ins):
     ends = _static_ints(ins[2], "Slice", "ends")
     axes = _static_ints(ins[3], "Slice", "axes") if len(ins) > 3 and ins[3] is not None else list(range(len(starts)))
     steps = _static_ints(ins[4], "Slice", "steps") if len(ins) > 4 and ins[4] is not None else [1] * len(starts)
-    if any(st < 1 for st in steps):
-        raise NotImplementedError("Slice with a non-positive step is not supported by the torch backend")
+    if any(st == 0 for st in steps):
+        raise ValueError("Slice: a step of 0")
     sl = [slice(None)] * x.ndim
+    backward = []
     for s, e, a, st in zip(starts, ends, axes, steps):
-        sl[a] = slice(s, e, st)
-    return [x[tuple(sl)]]  # a strided view: qattention takes it as it is, qmatmul copies it
+        if st > 0:
+            sl[a] = slice(s, e, st)
+        else:  # torch takes no negative step: ONNX's clamping is Python's
+            backward.append((a, range(*slice(s, e, st).indices(x.shape[a]))))
+    x = x[tuple(sl)]  # a strided view: qattention takes it as it is, qmatmul copies it
+    for a, idx in backward:
+        x = torch.index_select(x, a, torch.tensor(idx, dtype=torch.long, device=x.device))
+    return [x]
 
 
 @_top("Squeeze")

@@ -259,6 +259,26 @@ class ExecutionPlan:
         (the functional carry: ``present.* -> past_key_values.*``)."""
         return {s.input: outputs[s.output] for s in self.states}
 
+    def execute_dict_env(self, feeds: Dict[str, Any]) -> Dict[str, Any]:
+        """Name-keyed dict-env interpretation: the execution model before the
+        plan, kept as the baseline of the plan's overhead.  It runs the
+        *same* registry kernels; only the storage differs (a dict that only
+        grows in place of the fixed slot pool)."""
+        from .registry import lookup
+
+        env: Dict[str, Any] = dict(feeds)
+        for step in self.steps:
+            impl = lookup(self.backend, step.kernel)
+            args = [
+                env[a.name] if a.kind == SLOT
+                else (step.consts[a.index] if a.kind == CONST else None)
+                for a in step.args
+            ]
+            outs = impl(step, args)
+            for name, val in zip(step.outputs, outs):
+                env[name] = val
+        return {name: env[name] for name, _ in self.outputs}
+
     # -- introspection -------------------------------------------------------
     @property
     def kinds(self) -> Dict[str, int]:

@@ -1076,6 +1076,17 @@ class CompiledModel:
     def backend(self) -> str:
         return self.plan.backend
 
+    # -- single-axis views (the batch axis) ---------------------------------
+    @property
+    def batch_input_names(self) -> List[str]:
+        """Inputs carrying the batch axis."""
+        return list(self.axis_input_pos.get(BATCH_AXIS, {}))
+
+    @property
+    def batch_output_names(self) -> set:
+        """Outputs carrying the batch axis."""
+        return {k for k, v in self.output_axis_pos.items() if BATCH_AXIS in v}
+
     @property
     def is_dynamic(self) -> bool:
         return self.plan.batch == "dynamic"

@@ -233,7 +233,27 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     placements = NamedSharding(mesh, spec_for(x.shape, logical_axes)).placements
     if tuple(x.placements) == placements:
         return x
+    if any(p.is_partial() for p in x.placements):
+        return _FromPartial.apply(x, placements)
     return x.redistribute(mesh, placements)
+
+
+class _FromPartial(torch.autograd.Function):
+    """``x.redistribute(mesh, placements)`` from a partial sum, whose
+    backward sends the gradient to ``Replicate()`` on each mesh dim where
+    ``x`` was partial, as torch 2.13's does; torch 2.11's turns a sharded
+    gradient back into a partial sum and refuses ("redistribute from S(1)
+    to P(sum) not supported yet": a matmul's partial output pinned by
+    :func:`shard` on a (2, 2) mesh)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.back = [Replicate() if p.is_partial() else p for p in x.placements]
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.back), None
 
 
 def unshard(x: torch.Tensor, *dims: int) -> torch.Tensor:
@@ -280,6 +300,110 @@ def unshard_grad_for_split(x: torch.Tensor, dim: int, groups: int) -> torch.Tens
     tensor dim ``dim``, whose backward splits the gradient again.  A plain
     tensor passes through untouched."""
     return _UnshardGradForSplit.apply(x, dim, groups) if isinstance(x, DTensor) else x
+
+
+class _GradAsPlaced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_as_placed(x: torch.Tensor) -> torch.Tensor:
+    """The identity, whose backward lays the gradient out as ``x`` is laid
+    out (a partial sum reduced onto the shards).  For a parameter used
+    twice, as a tied embedding is by the lookup and the readout: autograd
+    adds the two gradients, and torch 2.11's add meets the readout's
+    partial sum, (P(sum), S(0)), beside the lookup's (S(1), R) by turning
+    the sharded one into a partial sum, which it refuses.  A plain tensor
+    passes through untouched."""
+    return _GradAsPlaced.apply(x) if isinstance(x, DTensor) else x
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: an
+    einsum's backward can hand a local shard's gradient back transposed,
+    and DTensor views the local tensor of a gradient as its global shape
+    says, which a strided one refuses."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *ops)`` on DTensors without DTensor merging two
+    sharded dims into one, which torch 2.11 refuses (its einsum flattens
+    the batch letters into one ``bmm`` dim: ``aten._unsafe_view`` of
+    (2, 2, 2, 16, 64, 1) sharded (S(0), S(1)) on a (2, 2) mesh).
+
+    Only where two such batch letters (those every operand and the output
+    carry: attention's batch and heads) are sharded does anything change.
+    Then, where each mesh dim shards at most one letter and that letter
+    is a batch letter, each rank runs the einsum on its shards (an
+    operand replicated on that mesh dim is sliced to its shard, with no
+    communication); elsewhere, on a mesh dim where that fails, the
+    operands' shards of batch letters are gathered first and DTensor's
+    einsum runs (a decode step's heads against a cache sharded on its
+    sequence).  Otherwise, and for plain tensors: ``torch.einsum`` as it
+    is."""
+    if not all(isinstance(o, DTensor) for o in ops) or len({o.device_mesh for o in ops}) != 1:
+        return torch.einsum(eq, *ops)
+    subs, out = eq.replace(" ", "").split("->")
+    subs = subs.split(",")
+    mesh = ops[0].device_mesh
+    batch = set(out).intersection(*map(set, subs))
+    if len({sub[p.dim] for o, sub in zip(ops, subs) for p in o.placements
+            if p.is_shard() and sub[p.dim] in batch}) < 2:
+        return torch.einsum(eq, *ops)  # DTensor flattens at most one sharded dim: any torch takes it
+    letters, bad = [], set()
+    for m in range(mesh.ndim):
+        shards = {sub[o.placements[m].dim] for o, sub in zip(ops, subs) if o.placements[m].is_shard()}
+        if any(o.placements[m].is_partial() for o in ops) or len(shards) > 1 or not shards <= batch:
+            bad.add(m)
+        letters.append(next(iter(shards)) if len(shards) == 1 else None)
+    if bad:
+        ops = [o.redistribute(mesh, [Replicate() if m in bad and p.is_shard() and sub[p.dim] in batch else p
+                                     for m, p in enumerate(o.placements)])
+               for o, sub in zip(ops, subs)]
+        return torch.einsum(eq, *ops)
+    local = []
+    for o, sub in zip(ops, subs):
+        want = [Shard(sub.index(c)) if c else Replicate() for c in letters]
+        local.append(_ContiguousGrad.apply((o if list(o.placements) == want else o.redistribute(mesh, want)).to_local()))
+    size = {c: n for o, sub in zip(ops, subs) for c, n in zip(sub, o.shape)}
+    shape = torch.Size(size[c] for c in out)
+    stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+    return DTensor.from_local(torch.einsum(eq, *local), mesh,
+                              [Shard(out.index(c)) if c else Replicate() for c in letters],
+                              run_check=False, shape=shape, stride=stride)
+
+
+def pad_as(x: torch.Tensor, like: torch.Tensor, pad: Sequence[int]) -> torch.Tensor:
+    """``F.pad(x, pad)`` (zeros), laid out as ``like``, which has the padded
+    shape.  On DTensors each rank pads whole rows: ``x`` is gathered along
+    the padded dims (and laid out as ``like`` along the rest), padded on
+    each rank, then sliced to ``like``'s shards.  torch 2.11's DTensor
+    ``pad`` fails to plan its own redistribution (an ``IndexError`` in
+    ``generate_greedy_transform_infos``: a prefill's K written into a cache
+    sharded on its sequence over a (2, 2) mesh)."""
+    if not (isinstance(x, DTensor) and isinstance(like, DTensor)):
+        return torch.nn.functional.pad(x, pad)
+    padded = {x.ndim - 1 - i // 2 for i in range(0, len(pad), 2) if pad[i] or pad[i + 1]}
+    whole = [Replicate() if p.is_shard() and p.dim in padded else p for p in like.placements]
+    if list(x.placements) != whole:
+        x = x.redistribute(like.device_mesh, whole)
+    out = DTensor.from_local(torch.nn.functional.pad(x.to_local(), pad), like.device_mesh, whole,
+                             run_check=False, shape=like.shape, stride=like.stride())
+    return out if whole == list(like.placements) else out.redistribute(like.device_mesh, like.placements)
 
 
 def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:

@@ -339,6 +339,39 @@ def quantized_conv2d_planned(
     return out.view(n_img, oh, ow, shape["n"]).permute(0, 3, 1, 2).contiguous()
 
 
+def quantized_conv2d(
+    x_q: torch.Tensor,  # (N, C, H, W) int8/uint8
+    w_q,  # (M, C, kH, kW) int8, tensor or array
+    bias_q,  # (M,) int32, or None
+    quant_scale,  # float, or (M,)
+    quant_shift,  # float, or (M,)
+    *,
+    strides=(1, 1),
+    pads=(0, 0, 0, 0),
+    out_dtype: torch.dtype = torch.int8,
+    relu: bool = False,
+    two_mul: bool = True,
+) -> torch.Tensor:
+    """ConvInteger + epilogue with no plan, ``repro``'s unplanned conv entry:
+    the weight is laid out as a template would lay it out
+    (:func:`template_qconv_params`) on every call, the GEMM's M bound to
+    this input's N·OH·OW, and the im2col route
+    (:func:`quantized_conv2d_planned`) runs the qmatmul kernel (its plain
+    version for CPU tensors).  A padded uint8 input reads 0 at its borders,
+    as ``ReferenceRuntime`` does (``repro``'s reads 128)."""
+    def host(a):
+        return None if a is None else np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+
+    consts, shape = template_qconv_params(
+        host(w_q), host(bias_q), host(quant_scale), host(quant_shift), strides=strides, pads=pads,
+        x_uint8=x_q.dtype == torch.uint8, device=x_q.device)
+    oh, ow = conv_out_hw(int(x_q.shape[2]), int(x_q.shape[3]), shape["kh"], shape["kw"],
+                         shape["strides"], shape["pads"])
+    bound = bind_qmatmul_axes({**shape, "lead": (int(x_q.shape[0]), oh, ow)}, None)
+    return quantized_conv2d_planned(x_q.contiguous(), *consts, bound, out_dtype=out_dtype, relu=relu,
+                                    two_mul=two_mul)
+
+
 def bind_qmatmul_batch(shape: dict, batch: Optional[int]) -> dict:
     """Single-axis sugar over :func:`bind_qmatmul_axes`: bind the implicit
     batch axis only."""

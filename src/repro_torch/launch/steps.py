@@ -12,6 +12,7 @@ import functools
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..checkpoint.ckpt import tree_leaves, tree_unflatten
 from ..configs.base import ModelConfig, ShapeConfig
@@ -52,10 +53,20 @@ def _value_and_grad(loss):
 
 
 def _microbatch(batch: Dict, n: int, i: int) -> Dict:
-    """Microbatch ``i`` of ``n``: rows ``i·B/n .. (i+1)·B/n`` of every array."""
+    """Microbatch ``i`` of ``n``: rows ``i·B/n .. (i+1)·B/n`` of every array.
+    A DTensor keeps its layout: its rows are sliced whole and laid out as
+    the batch was, as ``repro``'s scan over microbatches keeps the batch
+    axis sharded.  DTensor's own row slice of a row-sharded batch comes
+    out replicated under torch 2.13 and takes the wrong rows under 2.11."""
+    if n == 1:
+        return batch
+
     def rows(x):
         b = x.shape[0] // n
-        return x[i * b:(i + 1) * b]
+        if not isinstance(x, DTensor):
+            return x[i * b:(i + 1) * b]
+        whole = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+        return whole[i * b:(i + 1) * b].redistribute(x.device_mesh, x.placements)
 
     return {k: rows(v) for k, v in batch.items()}
 

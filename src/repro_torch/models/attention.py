@@ -25,7 +25,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.qlayers import div127
-from ..distributed.sharding import shard, split_last, unshard_for_split, unshard_grad_for_split
+from ..distributed.sharding import local_einsum, pad_as, shard, split_last, unshard_for_split, unshard_grad_for_split
 from .layers import apply_rope, linear, param, rmsnorm, softcap_fn
 
 NEG_INF = -2.0**30  # large-negative instead of -inf: keeps softmax NaN-free
@@ -123,7 +123,7 @@ def chunked_attention(
         acc = torch.zeros((b, hkv, g, q_chunk, dv), dtype=torch.float32, device=q.device)
         for k0 in range(0, skv, kv_chunk):
             k_j, v_j = kf[:, k0:k0 + kv_chunk], vf[:, k0:k0 + kv_chunk]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j) * scale
+            s = local_einsum("bqhgd,bkhd->bhgqk", q_i, k_j) * scale
             s = softcap_fn(s, softcap)
             valid = _mask(qp_i, kv_pos[k0:k0 + kv_chunk], window=window, bidirectional=bidirectional)
             s = torch.where(valid[None, None, None], s, NEG_INF)
@@ -131,7 +131,7 @@ def chunked_attention(
             corr = torch.exp(m_run - m_new)
             p = torch.exp(s - m_new[..., None])
             l_run = l_run * corr + p.sum(dim=-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, v_j)
+            pv = local_einsum("bhgqk,bkhd->bhgqd", p, v_j)
             acc = acc * corr[..., None] + pv
             m_run = m_new
         out = acc / torch.clamp_min(l_run, 1e-30)[..., None]  # (B,Hkv,G,qc,Dv)
@@ -150,7 +150,7 @@ def decode_attention(
     window: int,
     softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32), k.to(torch.float32)) * scale
+    s = local_einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32), k.to(torch.float32)) * scale
     s = softcap_fn(s, softcap)
     kv_pos_b = (kv_pos if kv_pos.ndim == 2 else kv_pos[None, :]).expand(q.shape[0], k.shape[1])
     d = cur_pos[:, None] - kv_pos_b  # (B, T)
@@ -159,7 +159,7 @@ def decode_attention(
         valid = valid & (d < window)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    out = local_einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     return out.to(q.dtype)
 
 
@@ -206,7 +206,7 @@ def _write_rows(buf: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     out over ``seq_shard``) writes the wrong rows without an error; the
     select keeps each rank's rows, and is exact on any tensor."""
     s, t = val.shape[1], buf.shape[1]
-    padded = torch.nn.functional.pad(val, (0, 0) * (buf.ndim - 2) + (0, t - s))
+    padded = pad_as(val, buf, (0, 0) * (buf.ndim - 2) + (0, t - s))
     old = torch.arange(t, device=buf.device) >= s
     return torch.where(old.reshape((t,) + (1,) * (buf.ndim - 2)), buf, padded)
 

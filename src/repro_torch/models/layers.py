@@ -17,8 +17,9 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import shard
+from ..distributed.sharding import bind_mesh, grad_as_placed, shard
 from ..core.qlayers import dynamic_quantize
 from ..kernels.ref import int_matmul
 
@@ -32,6 +33,17 @@ def param(gen: torch.Generator, shape: Sequence[int], scale: float = 0.02,
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=dev if dev.type == "meta" else gen.device) * scale
     return x.to(device=dev, dtype=dtype)
+
+
+def remat_chunk(fn, *args):
+    """``fn(*args)``, rematerialized when autograd records it: the backward
+    keeps only ``fn``'s inputs and runs ``fn`` again, as ``jax.checkpoint``
+    wraps a scan body in ``repro`` (a recurrence's chunk: only the carried
+    state between chunks is stored).  The recompute runs under the
+    forward's mesh (:func:`~repro_torch.distributed.sharding.bind_mesh`)."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(bind_mesh(fn), *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _promote(*ts: torch.Tensor):
@@ -167,7 +179,7 @@ def embed(params: dict, tokens: torch.Tensor, *, scale_by_sqrt_dim: bool = False
 def logits_from_embedding(params: dict, x: torch.Tensor, *,
                           softcap: Optional[float] = None) -> torch.Tensor:
     """Tied-embedding readout (x @ table.T) with optional logit softcapping."""
-    logits = x.to(torch.float32) @ params["table"].t().to(torch.float32)
+    logits = x.to(torch.float32) @ grad_as_placed(params["table"]).t().to(torch.float32)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

@@ -3,7 +3,7 @@
 
 The chunked State-Space-Dual algorithm (Dao & Gu 2024): within a chunk the
 recurrence is computed as masked-decay attention (matmuls); across chunks a
-(B, H, P, N) state is carried, chunk by chunk.  Decode is the O(1)
+(B, H, P, N) state is carried, chunk by chunk, each chunk rematerialized.  Decode is the O(1)
 single-step recurrence.
 
     h_t = exp(dt_t·A) h_{t-1} + dt_t · x_t ⊗ B_t
@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import linear, param, rmsnorm
+from .layers import linear, param, remat_chunk, rmsnorm
 
 
 def _dims(cfg: ModelConfig):
@@ -92,6 +92,23 @@ def _ssd_chunk(s_prev, xh, bm, cm, dt, la):
     return s_new, (y_intra + y_inter).to(xh.dtype)
 
 
+def _ssd_scan(state, xh, bm, cm, dt, la, *, chunk: int):
+    """The SSD over time, chunk by chunk (:func:`_ssd_chunk`), each chunk
+    rematerialized: the backward stores only the (B,H,P,N) chunk-boundary
+    states, not the (B,L,L,H) intra-chunk decay matrices.  Returns the final
+    state and y (B,S,H,P)."""
+    s = xh.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the SSD chunk {chunk}")
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        state, y_c = remat_chunk(_ssd_chunk, state, xh[:, sl], bm[:, sl], cm[:, sl], dt[:, sl], la[:, sl])
+        ys.append(y_c)
+    return state, torch.cat(ys, dim=1)
+
+
 def mamba2_mix(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig, *,
                chunk: int = 256) -> Tuple[torch.Tensor, dict]:
     ssm = cfg.ssm
@@ -117,17 +134,8 @@ def mamba2_mix(p: dict, x: torch.Tensor, state: dict, cfg: ModelConfig, *,
         y = y.reshape(b, 1, nh, pdim)
         ssd_state = s_new
     else:
-        chunk = min(chunk, s)
-        if s % chunk:
-            raise ValueError(f"sequence length {s} is not a multiple of the SSD chunk {chunk}")
-        bmf, cmf = bm.to(torch.float32), cm.to(torch.float32)
-        ssd_state, ys = state["ssd"], []
-        for c0 in range(0, s, chunk):
-            sl = slice(c0, c0 + chunk)
-            ssd_state, y_c = _ssd_chunk(ssd_state, xh[:, sl], bmf[:, sl], cmf[:, sl], dt[:, sl],
-                                        log_decay[:, sl])
-            ys.append(y_c)
-        y = torch.cat(ys, dim=1)
+        ssd_state, y = _ssd_scan(state["ssd"], xh, bm.to(torch.float32), cm.to(torch.float32), dt,
+                                 log_decay, chunk=chunk)
 
     y = y + p["D"][None, None, :, None].to(y.dtype) * xh.to(y.dtype)
     y = y.reshape(b, s, d_inner)

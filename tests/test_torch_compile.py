@@ -89,6 +89,30 @@ def test_generic_op_matches_reference_runtime(op):
             np.testing.assert_array_equal(g, w, err_msg=op)
 
 
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_slice_with_a_negative_step_matches_repro(backend):
+    """ONNX's clamping for a negative step: x = arange(40) as (4, 10),
+    starts [8], ends [0], axes [1], steps [-2] gives rows [8, 6, 4, 2] (+10
+    a row), equal to ``repro``'s compiled generic op and ReferenceRuntime."""
+    gb = GraphBuilder("slice_back")
+    x = gb.add_input("x", "int32", (4, 10))
+    args = [gb.add_initializer(n, np.array([v], np.int64))
+            for n, v in (("starts", 8), ("ends", 0), ("axes", 1), ("steps", -2))]
+    y = gb.op("Slice", [x] + args)
+    gb.add_output(y, "int32", (4, 4))
+    model = gb.build()
+    feeds = {"x": np.arange(40, dtype=np.int32).reshape(4, 10)}
+    want = ReferenceRuntime(model).run(feeds)[y]
+    np.testing.assert_array_equal(want[0], [8, 6, 4, 2])
+    jgot = jcompile(model, backend="ref", fuse=False, optimize=False).run(feeds)[y]
+    np.testing.assert_array_equal(np.asarray(jgot), want)
+    cm = compile_model(_port(model), backend=backend, device="cpu", fuse=False, optimize=False)
+    assert [s.kernel for s in cm.plan.steps] == ["op.Slice"]
+    got = cm.run(feeds)[y]
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def _pool_model(op, kernel, stride, pad, dtype):
     gb = GraphBuilder(f"{op.lower()}_{dtype}")
     x = gb.add_input("x", dtype, (2, 3, 9, 9))
