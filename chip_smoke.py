@@ -49,7 +49,12 @@ Drives the port's main path on one CUDA card and fails loudly:
    (``repro_torch.backend.artifact``) and served by a fresh process
    (``chip_smoke.py --load-artifact``, importing only ``repro_torch``) with
    no fuse/lower span and no plan-cache miss, its outputs equal to the
-   ``ref`` backend's; ``scripts/plan_diff.py`` self-diffs it identical.
+   ``ref`` backend's; ``scripts/plan_diff.py`` and the port's
+   ``python -m repro_torch.scripts.plan_diff`` self-diff it identical, and
+   the port's diff of the same decode plan saved with heuristic tiles
+   against it exits 1, names every fused step of the cell and shows moved
+   tiles (``bm``/``splits`` or ``cluster``) on exactly the steps the tile
+   cache moved (``scripts/plan_diff.py``'s reading of that pair is logged).
    Slice A is served with a background tuner (``tuned_swaps`` >= 1,
    nothing pending, responses equal to ``ref``).  Log lines give heuristic
    vs winning tiles per tuned step shape and the phase's wall times;
@@ -131,8 +136,16 @@ Drives the port's main path on one CUDA card and fails loudly:
    runs qwen3 (float32, TF32 off, ``nothing_saveable``, batch 4 × 512) for
    ``RECUR_TRAIN_STEPS`` steps and one profiled step; no hand-written
    kernel launches;
-13. summary — one JSON line of the kernels with their launch counts summed
-   over the served runs of phases 4–12, then the card line, then the
+13. examples — each of ``src/repro_torch/examples`` (quickstart,
+   cnn_prequant, serve_compiled, fleet_serve, serve_quantized, train_qat)
+   run as a child process, ``python -m repro_torch.examples.<name>``, at the
+   defaults of its ``examples/`` original: every check in its last JSON
+   line true (codes and responses equal to ``ReferenceRuntime``, nothing
+   lost or served twice, finite QAT losses and the W8A8 loss drift under
+   0.15 after 200 QAT steps), the four compiled examples launching qmatmul;
+   each child counts its own launches from its start;
+14. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–13, then the card line, then the
    ``{"ok": true, ...}`` line.
 
 Each of phases 4–12 zeroes the launch counters just before each counted run
@@ -156,6 +169,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1104,6 +1118,92 @@ def tuned_groups(cache_path):
     return out
 
 
+#: A changed hot-cell line of a plan diff: the step, then its tiles and their
+#: source on each side.
+DIFF_CELL_LINE = re.compile(r"\((?P<cell>[^)]*)\) (?P<name>\S+): (?P<a>.*) \[(?P<sa>[^\]]+)\] -> "
+                            r"(?P<b>.*) \[(?P<sb>[^\]]+)\]  \[changed\]")
+
+
+def run_plan_diff(script, a, b):
+    """One plan diff as a child process: ``script`` is ``scripts/plan_diff.py``
+    (a path) or the port's module (``-m repro_torch.scripts.plan_diff``).
+    Returns the exit code, the output and the seconds it took."""
+    cmd = [sys.executable] + (["-m", script] if script.startswith("repro_torch.") else [script])
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    r = subprocess.run(cmd + [a, b], capture_output=True, text=True, timeout=900, cwd=ROOT, env=env)
+    if r.returncode not in (0, 1):
+        raise AssertionError(f"{script} {a} {b}: rc {r.returncode}\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    return r.returncode, r.stdout, time.perf_counter() - t
+
+
+def diffed_steps(stdout, cell):
+    """The steps a plan diff names on changed lines of hot cell ``cell``, and
+    those of them whose tiles differ (the source tag aside)."""
+    named, moved = [], []
+    for line in stdout.splitlines():
+        m = DIFF_CELL_LINE.fullmatch(line.strip())
+        if m and m["cell"] == cell:
+            named.append(m["name"])
+            if m["a"] != m["b"]:
+                moved.append(m["name"])
+    return sorted(named), sorted(moved)
+
+
+def moved_by_cache(cache_path, cell):
+    """The steps of ``cell`` whose tiles the tile cache moved off their
+    heuristic (the tuner keys each step by name)."""
+    with open(cache_path) as f:
+        entries = json.load(f)["entries"]
+    moved = []
+    for key, e in entries.items():
+        name, _, key_cell, _ = key.split("|")
+        win = str(e["cluster"]) if "cluster" in e else f"{e['bm']},{e['splits']}"
+        if key_cell == cell and win != e["heuristic"]:
+            moved.append(name)
+    return sorted(moved)
+
+
+def plan_diffs(tuned_path, heuristic_path, cell, groups, n_steps, card):
+    """Phase 7's plan diffs: the port's self-diff of the tuned decode
+    artifact (exit 0), the port's diff of its heuristic twin against it (exit
+    1, naming every step of the cell and moving the tiles of exactly the
+    steps the tile cache moved, as many as ``tuned_groups`` counts), and
+    ``scripts/plan_diff.py`` on the same pair (logged, no gate)."""
+    port = "repro_torch.scripts.plan_diff"
+    rc, out, self_s = run_plan_diff(port, tuned_path, tuned_path)
+    if rc != 0 or not out.rstrip().endswith("structurally identical"):
+        raise AssertionError(f"the port's plan diff of the tuned artifact against itself: rc {rc}\n"
+                             f"{out[-2000:]}")
+    rc, out, pair_s = run_plan_diff(port, heuristic_path, tuned_path)
+    named, moved = diffed_steps(out, cell)
+    want = moved_by_cache(TUNE_CACHE, cell)
+    n_groups = 0
+    for g in groups:
+        if g["cell"] == cell:
+            if len(g["heuristic"]) != 1:
+                raise AssertionError(f"tuned group {g['shape']}: heuristics {g['heuristic']}")
+            n_groups += g["steps"] - g["winners"].get(g["heuristic"][0], 0)
+    if rc != 1 or len(named) != n_steps or moved != want or len(moved) != n_groups:
+        raise AssertionError(
+            f"the port's plan diff, heuristic vs tuned decode artifact: rc {rc}, {len(named)} of "
+            f"{n_steps} steps named, tiles moved on {moved}; the tile cache moved {want} "
+            f"({n_groups} by tuned_groups)\n{out[-3000:]}")
+    old_rc, old_out, old_s = run_plan_diff(os.path.join(ROOT, "scripts", "plan_diff.py"),
+                                           heuristic_path, tuned_path)
+    old_named, old_moved = diffed_steps(old_out, cell)
+    log(f"  plan diff (python -m {port}): self-diff exit 0 ({self_s:.1f} s); heuristic vs tuned "
+        f"decode artifact exit {rc} ({pair_s:.1f} s): all {len(named)} fused steps of ({cell}) "
+        f"named (tile source heuristic -> tuned), tiles moved on {len(moved)} == the tile cache's "
+        f"{len(want)} moved steps == tuned_groups' {n_groups}  ({card})")
+    log(f"  scripts/plan_diff.py on the same pair (no gate): exit {old_rc} ({old_s:.1f} s), "
+        f"{len(old_named)} steps named, tiles shown moved on {len(old_moved)} of the "
+        f"{len(moved)} (it has no splits or cluster key)  ({card})")
+    return dict(self_s=self_s, pair_rc=rc, pair_s=pair_s, named=len(named), moved=moved,
+                cache_moved=len(want), groups_moved=n_groups, old_rc=old_rc, old_s=old_s,
+                old_named=len(old_named), old_moved=len(old_moved))
+
+
 def artifact_child(path, feeds_path, out_path) -> int:
     """The fresh process of phase 7 (``chip_smoke.py --load-artifact``): load
     the saved decode plan with ``warm=True`` under a tracer, run the feeds,
@@ -1152,8 +1252,8 @@ def run_tuning(device, ref, card):
     import numpy as np
     import torch
 
-    from repro_torch.backend.artifact import save_artifact
-    from repro_torch.backend.autotune import Autotuner
+    from repro_torch.backend.artifact import save_artifact, sidecar_path
+    from repro_torch.backend.autotune import Autotuner, cell_key
     from repro_torch.core.compile import compile_model
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import CompiledModelServer, CompiledServerConfig
@@ -1262,13 +1362,18 @@ def run_tuning(device, ref, card):
                 raise AssertionError(f"the artifact process returned {sorted(got.files)}")
             for k, v in want.items():
                 _same(torch.from_numpy(got[k]), v.cpu(), f"loaded decode plan output {k}")
-        t = time.perf_counter()
-        diff = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "plan_diff.py"), path,
-                               path], capture_output=True, text=True, timeout=900)
-        diff_s = time.perf_counter() - t
-        if diff.returncode != 0 or "structurally identical" not in diff.stdout:
-            raise AssertionError(f"plan_diff of the artifact against itself: rc {diff.returncode}\n"
-                                 f"{diff.stdout[-2000:]}{diff.stderr[-2000:]}")
+        rc, out, diff_s = run_plan_diff(os.path.join(ROOT, "scripts", "plan_diff.py"), path, path)
+        if rc != 0 or "structurally identical" not in out:
+            raise AssertionError(f"plan_diff of the artifact against itself: rc {rc}\n{out[-2000:]}")
+        # the same decode plan with the heuristic tiles (no tuner), beside the tuned one
+        heuristic = CompiledTokenPath(cfg, params, backend="cuda", device=device)
+        heuristic.decode_cm.specialized(DECODE_CELL)
+        heuristic_path = os.path.join(ARTIFACT_DIR, "decode_heuristic.json")
+        save_artifact(heuristic.decode_cm, heuristic_path)
+        del heuristic
+        os.unlink(sidecar_path(heuristic_path))  # the diff reads the JSON only
+        diffs = plan_diffs(path, heuristic_path, cell_key(DECODE_CELL), groups,
+                           records[ref["tp"].decode_model.graph.name], card)
     finally:
         shutil.rmtree(ARTIFACT_DIR, ignore_errors=True)
     log(f"  artifact: save {save_s:.1f} s ({size / 2**30:.2f} GiB with its sidecar); a fresh "
@@ -1322,7 +1427,8 @@ def run_tuning(device, ref, card):
         measurements=tuner.measurements, records=records, cold_compile_s=cold_compile_s,
         cold_tune_s=cold_tune_s, warm_compile_s=warm_compile_s,
         warm_specialize_s=warm_specialize_s, save_s=save_s, artifact_bytes=size,
-        child_s=child_s, child=report, plan_diff_s=diff_s, tuning_launches=tuning_launches,
+        child_s=child_s, child=report, plan_diff_s=diff_s, plan_diffs=diffs,
+        tuning_launches=tuning_launches,
         groups=groups, slice_a=dict(measurements=srv_tuner.measurements,
                                     tuned_swaps=summ["tuned_swaps"], requests=len(got),
                                     serve_s=serve_s, groups=groups_a,
@@ -3066,6 +3172,92 @@ def lut_row(rows, worst, launches):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the port's examples, each run as a user runs it
+# ---------------------------------------------------------------------------
+
+#: ``python -m repro_torch.examples.<name>`` at its defaults (those of
+#: ``examples/<name>.py``), with the keys of its last line that must be true.
+EXAMPLE_CHECKS = {
+    "quickstart": ("codes_equal", "round_trip_equal"),
+    "cnn_prequant": ("per_tensor_equal", "per_channel_equal"),
+    "serve_compiled": ("mlp_equal", "seq_equal"),
+    "fleet_serve": ("fleet_equal", "failover_equal"),
+    "serve_quantized": ("all_generated",),
+    "train_qat": ("losses_finite", "drift_ok"),
+}
+#: The examples that serve compiled artifacts: each must launch qmatmul.
+COMPILED_EXAMPLES = ("quickstart", "cnn_prequant", "serve_compiled", "fleet_serve")
+EXAMPLES_LOG_DIR = os.path.join(OUT_DIR, "examples")
+
+
+def run_example(name):
+    """One example as a child process on the card; returns its last line
+    (one JSON object) with the child's wall seconds.  Its whole output goes
+    to ``chiprun_out/examples/<name>.log``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}"], capture_output=True,
+                       text=True, timeout=900, cwd=ROOT, env=env)
+    wall_s = time.perf_counter() - t
+    os.makedirs(EXAMPLES_LOG_DIR, exist_ok=True)
+    with open(os.path.join(EXAMPLES_LOG_DIR, f"{name}.log"), "w") as f:
+        f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    if r.returncode != 0:
+        raise AssertionError(f"example {name} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    out["wall_s"] = wall_s
+    return out
+
+
+def run_examples(card):
+    """Phase 13: the six examples of ``src/repro_torch/examples`` on the card,
+    each a child process at the original's defaults; every check of each
+    must hold (codes and responses equal to ``ReferenceRuntime`` in 1-4,
+    nothing lost or served twice in 4, finite losses and the W8A8 drift
+    under 0.15 in 6), and 1-4 must launch qmatmul.  Returns the phase's
+    record and the launches summed over the six runs."""
+    record, launches = {}, {}
+    for name, checks in EXAMPLE_CHECKS.items():
+        r = run_example(name)
+        failed = [k for k in checks if r.get(k) is not True]
+        if name == "fleet_serve" and (r["lost"] or r["duplicates"] or r["plan_cache_misses"]):
+            failed.append(f"lost {r['lost']}, duplicates {r['duplicates']}, "
+                          f"misses {r['plan_cache_misses']}")
+        if name in COMPILED_EXAMPLES and r["launches"]["qmatmul"] <= 0:
+            failed.append("no qmatmul launch")
+        if failed or r["device"] != "cuda":
+            raise AssertionError(f"example {name} on {r['device']}: {failed}; its line: {r}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        if name == "quickstart":
+            detail = (f"codes == ReferenceRuntime, {r['eliminated']} nodes eliminated, round trip "
+                      f"equal, int8 vs fp32 {r['rel_err_vs_f32']:.4f}")
+        elif name == "cnn_prequant":
+            detail = (f"per-tensor and per-channel == ReferenceRuntime, accuracy fp32 "
+                      f"{r['acc_f32']:.3f}, int8 {r['acc_int8']:.3f}, per-channel "
+                      f"{r['acc_int8_per_channel']:.3f}")
+        elif name == "serve_compiled":
+            detail = (f"{r['mlp_requests']} + {r['seq_requests']} requests == their solo runs, "
+                      f"server p95 {r['mlp_latency_p95_ms']:.2f} / {r['seq_latency_p95_ms']:.2f} ms")
+        elif name == "fleet_serve":
+            detail = (f"{r['requests']} + {r['wave']} requests == their solo runs, {r['failovers']} "
+                      f"failover, {r['rerouted']} rerouted, lost 0, duplicates 0")
+        elif name == "serve_quantized":
+            detail = ", ".join(f"{k} {p['tokens_per_s']:.1f} tokens/s (agreement "
+                               f"{p['agreement']:.1%})" for k, p in r["postures"].items())
+        else:
+            detail = (f"{r['steps']} QAT steps, loss {r['loss_first']:.4f} -> {r['loss_last']:.4f} "
+                      f"(Δ {r['loss_delta']:.4f}); eval f32 {r['loss_f32']:.4f}, W8A8 "
+                      f"{r['loss_w8a8']:.4f}, drift {r['drift']:.4f} < 0.15; greedy agreement "
+                      f"{r['agreement']:.2%}")
+        log(f"  {name}: {r['wall_s']:.1f} s wall; {detail}; launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }  ({card})")
+        record[name] = r
+    return record, launches
+
+
 def main() -> int:
     import torch
 
@@ -3077,23 +3269,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/13] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/14] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/13] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/14] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/13] kernels against their plain versions (tolerance 0)")
+    log("[3/14] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/13] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    log(f"[4/14] token path: compiled token path, backend cuda vs backend ref  ({card})")
     perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
@@ -3116,7 +3308,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/13] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/14] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -3129,7 +3321,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/13] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/14] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -3142,7 +3334,7 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
-    log(f"[7/13] autotune: the token path tuned on the card (cold, then warm from the tile "
+    log(f"[7/14] autotune: the token path tuned on the card (cold, then warm from the tile "
         f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
         f"server's background; every output against the ref backend  ({card})")
     tuning, launches_tune = run_tuning(device, ref, card)
@@ -3150,7 +3342,7 @@ def main() -> int:
         f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
         f"candidates measured between batches included: {tuning['slice_a']['launches']}")
 
-    log(f"[8/13] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
+    log(f"[8/14] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
         f"by {FLEET_REPLICAS} replicas warm-started from its artifact behind a ShardedRouter, one "
         f"replica failing; phase 4's decode checkpointed through a crash; the generic pooling ops  "
         f"({card})")
@@ -3167,7 +3359,7 @@ def main() -> int:
         f"{launches_8['qmatmul_packed']}, qattention {launches_8['qattention']}; phase 8 took "
         f"{time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[9/13] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
+    log(f"[9/14] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
         f"adapter in three postures; its weights cut to {ZOO_CUT_LAYERS} layers and every other "
         f"architecture at reduced() on the card against the CPU; QuantizedLinear on the qmatmul "
         f"kernel  ({card})")
@@ -3176,7 +3368,7 @@ def main() -> int:
     log(f"  launches in phase 9's served run (QuantizedLinear, backend cuda): {launches_zoo}; "
         f"phase 9 took {time.perf_counter() - t:.1f} s")
 
-    log(f"[10/13] training: qwen3_1_7b at its full config trained on the card by "
+    log(f"[10/14] training: qwen3_1_7b at its full config trained on the card by "
         f"repro_torch.launch.train, plain and with QAT, one step profiled; its weights cut to "
         f"{TRAIN_CUT_LAYERS} layers, card vs CPU; resume; grad_compress  ({card})")
     t = time.perf_counter()
@@ -3184,7 +3376,7 @@ def main() -> int:
     log(f"  launches in phase 10's training runs: {launches_train} (training computes in plain "
         f"PyTorch, as repro trains in XLA); phase 10 took {time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[11/13] mesh: a one-rank NCCL process group and a (1, 1) (data, model) DeviceMesh on the card; "
+    log(f"[11/14] mesh: a one-rank NCCL process group and a (1, 1) (data, model) DeviceMesh on the card; "
         f"qwen3_1_7b at its full config trained on it ({MESH_STEPS} steps, against phase 10), served cut to "
         f"{ZOO_CUT_LAYERS} layers (against the unsharded steps), checkpointed from it and restored  ({card})")
     t = time.perf_counter()
@@ -3192,7 +3384,7 @@ def main() -> int:
     log(f"  launches in phase 11's mesh runs: {launches_mesh} (the sharded steps compute in plain PyTorch); "
         f"phase 11 took {time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[12/13] recurrent families at full width: {RECUR_ARCH} at its published config served by "
+    log(f"[12/14] recurrent families at full width: {RECUR_ARCH} at its published config served by "
         f"ServeEngine's default adapter ({RECUR_REQUESTS} requests of {RECUR_PROMPT} tokens), its chunked "
         f"WKV6 against the per-step plain version at one layer's shape, cut to {ZOO_CUT_LAYERS} layers card vs "
         f"CPU, trained {RECUR_TRAIN_STEPS} steps  ({card})")
@@ -3203,9 +3395,17 @@ def main() -> int:
     log(f"  launches in phase 12's served and training runs: {launches_rec} (the recurrent families compute in "
         f"plain PyTorch, as repro computes them in XLA); phase 12 took {time.perf_counter() - t:.1f} s  ({card})")
 
+    log(f"[13/14] examples: python -m repro_torch.examples.<name> for each of "
+        f"{', '.join(EXAMPLE_CHECKS)}, on the card at the originals' defaults  ({card})")
+    t = time.perf_counter()
+    examples, launches_ex = run_examples(card)
+    examples_s = time.perf_counter() - t
+    log(f"  launches in phase 13's six runs: {launches_ex}; phase 13 took {examples_s:.1f} s  ({card})")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
                 + launches_tune.get(k, 0) + launches_8.get(k, 0) + launches_zoo.get(k, 0)
                 + launches_train.get(k, 0) + launches_mesh.get(k, 0) + launches_rec.get(k, 0)
+                + launches_ex.get(k, 0)
                 for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
@@ -3241,11 +3441,11 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[13/13] summary: launches are summed over the served runs of phases 4-12 (phase 7: "
+    log("[14/14] summary: launches are summed over the served runs of phases 4-13 (phase 7: "
         "the tuned and the warm-started token path's drives, no tuning candidate; phase 8: "
         "the fleet's rounds and failover wave and the resilient decode; phase 9: "
         "QuantizedLinear on backend cuda; phase 10's training runs, phase 11's mesh runs and phase 12's "
-        "recurrent runs launch none); "
+        "recurrent runs launch none; phase 13: the six examples' runs); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
@@ -3263,11 +3463,12 @@ def main() -> int:
                    "slice_b": perf_b, "autotune": tuning, "fleet": fleet,
                    "checkpoint": checkpoint, "pooling": pooling, "zoo": zoo, "training": training,
                    "mesh": mesh, "recurrent": recurrent,
+                   "examples": dict(examples, wall_s=examples_s),
                    "launches": {"token_path": launches_tok, "slice_a": launches_a,
                                 "slice_b": launches_b, "autotune": launches_tune,
                                 "fleet_and_checkpoints": launches_8, "zoo": launches_zoo,
                                 "training": launches_train, "mesh": launches_mesh,
-                                "recurrent": launches_rec},
+                                "recurrent": launches_rec, "examples": launches_ex},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)
