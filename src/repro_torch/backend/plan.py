@@ -57,15 +57,22 @@ int granularity | callable) to a policy function.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from ..core.cache import LruCache
+from ..obs import trace as _trace
 from ..obs.provenance import PlanProvenance
 
 #: Arg kinds.
 SLOT, CONST, NONE = "slot", "const", "none"
+
+
+def _null_range(name: str):
+    """A traced step's profiler range when no profiler records: none."""
+    return _trace.NULL_SPAN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +249,8 @@ class ExecutionPlan:
         env: List[Any] = [None] * self.num_slots
         for name, slot in self.inputs:
             env[slot] = feeds[name]
+        if _trace.enabled:
+            return self._execute_traced(env)
         for step in self.steps:
             impl = lookup(self.backend, step.kernel)
             args = [
@@ -252,6 +261,48 @@ class ExecutionPlan:
             outs = impl(step, args)
             for slot, val in zip(step.out_slots, outs):
                 env[slot] = val
+        return {name: env[slot] for name, slot in self.outputs}
+
+    def _execute_traced(self, env: List[Any]) -> Dict[str, Any]:
+        """:meth:`execute`'s loop under a tracer: one ``plan.execute`` span,
+        and in it one ``plan.<kind>`` span per step (attrs ``step``,
+        ``kernel``, ``name``), each mirrored as a profiler range while a
+        profiler records.  A step's interval runs from its kernel lookup to
+        its last output stored; the stamps are kept in a list and become
+        records only when the tracer is read."""
+        from .registry import lookup
+
+        steps = self.steps
+        rng = _trace.profiler_range() or _null_range
+        perf = time.perf_counter
+        stamps: List[float] = []
+        stamp = stamps.append
+
+        def label(i: int) -> Tuple[str, Dict[str, Any]]:
+            s = steps[i]
+            return "plan." + s.kind, {"step": i, "kernel": s.kernel, "name": s.name}
+
+        with _trace.span("plan.execute", steps=len(steps), batch=self._batch_str()):
+            try:
+                for step in steps:
+                    with rng("plan." + step.kind):
+                        t0 = perf()
+                        impl = lookup(self.backend, step.kernel)
+                        args = [
+                            env[a.index] if a.kind == SLOT
+                            else (step.consts[a.index] if a.kind == CONST else None)
+                            for a in step.args
+                        ]
+                        outs = impl(step, args)
+                        for slot, val in zip(step.out_slots, outs):
+                            env[slot] = val
+                        t1 = perf()
+                    stamp(t0)
+                    stamp(t1)
+            finally:
+                tracer = _trace.current()
+                if tracer is not None:
+                    tracer.add_steps(stamps, label)
         return {name: env[slot] for name, slot in self.outputs}
 
     def next_state_feeds(self, outputs: Dict[str, Any]) -> Dict[str, Any]:

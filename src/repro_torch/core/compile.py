@@ -127,6 +127,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def host_to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array as a tensor on ``device``: where a feed crosses from host
+    memory to the device.  Under a tracer the copy is an ``xfer.h2d`` span
+    whose ``bytes`` attr is the host bytes read."""
+    if not _trace.enabled:
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    with _trace.span("xfer.h2d", bytes=int(a.nbytes)):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+
 def _dev(compiler: "Compiler", a) -> torch.Tensor:
     """A constant array as a tensor on the compiler's device (moved once)."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(compiler.device)
@@ -1095,13 +1105,12 @@ class CompiledModel:
         """A feed as a tensor on the plan's device (numpy arrays copy once)."""
         if isinstance(v, torch.Tensor):
             return v.to(self.device)
-        return torch.as_tensor(np.asarray(v), device=self.device)
+        return host_to_device(np.asarray(v), self.device)
 
     def run(self, feeds: Dict[str, object]) -> Dict[str, torch.Tensor]:
         if self.is_dynamic:
             return self._run_dynamic(feeds)
-        with _trace.span("run.execute"):
-            return self.plan.execute({k: self._tensor(v) for k, v in feeds.items()})
+        return self.plan.execute({k: self._tensor(v) for k, v in feeds.items()})
 
     def __call__(self, **feeds) -> Dict[str, torch.Tensor]:
         return self.run(feeds)
@@ -1199,10 +1208,7 @@ class CompiledModel:
                     grown[tuple(slice(0, d) for d in v.shape)] = v
                     v = grown
                 padded[name] = v
-        with _trace.span("run.execute") as ex_span:
-            if _trace.enabled:
-                ex_span.set(**{f"bucket_{a}": b for a, b in sorted(bindings.items())})
-            res = fn(padded)
+        res = fn(padded)
         with _trace.span("run.slice"):
             out: Dict[str, torch.Tensor] = {}
             for k, v in res.items():

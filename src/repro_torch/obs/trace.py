@@ -13,6 +13,21 @@ exports two ways:
 * :meth:`Tracer.render_tree` — a human-readable nested tree with durations
   and attributes, for terminals and bug reports.
 
+One clock with the device trace
+===============================
+
+While a ``torch.profiler`` session records in this process, every span
+also opens a profiler range of the same name on the same thread
+(:func:`profiler_range`), entered before the span's start is stamped and
+left after its end, so the ranges enclose the kernels the span launched on
+the profiler's own clock and nest as the spans do.  Instants and async
+spans are not mirrored.
+
+Hot loops record in bulk: :meth:`Tracer.add_steps` takes the start and end
+stamps of a loop's iterations once the loop has ended, and the records are
+built only when the tracer is read (``ExecutionPlan.execute``'s
+``plan.<kind>`` spans).
+
 Install/uninstall discipline
 ============================
 
@@ -22,19 +37,22 @@ installed tracer (:func:`install` / :func:`uninstall`).  With **no tracer
 installed** the helpers return a shared no-op context manager — one global
 read and no allocation — and the hottest sites additionally guard on the
 module flag :data:`enabled`, so the uninstrumented hot path stays at parity
-(the ``sys_plan_overhead`` benchmark row pins this).
+(``tests/test_torch_obs.py`` pins this: with no tracer installed,
+``ExecutionPlan.execute`` opens no span at all).
 
-This module is intentionally dependency-free (stdlib only) and imports
-nothing from the rest of :mod:`repro`.
+This module imports nothing from the rest of :mod:`repro_torch` and needs
+only the standard library: torch is looked up in ``sys.modules`` when a
+span opens, never imported here.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import json
+import sys
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 #: True iff a tracer is installed.  Hot paths guard on this before building
 #: span attribute dicts; everything else just calls :func:`span`.
@@ -43,6 +61,29 @@ enabled: bool = False
 _TRACER: Optional["Tracer"] = None
 _INSTALL_LOCK = threading.Lock()
 _IDS = itertools.count(1)
+#: (is the profiler recording, range factory) once torch is loaded; False
+#: where this torch lacks them.
+_PROFILER: Any = None
+
+
+def profiler_range() -> Optional[Callable[[str], Any]]:
+    """The factory of profiler ranges (``name -> context manager``) while a
+    ``torch.profiler`` session records in this process; None otherwise.
+    Costs a module read and one C call."""
+    global _PROFILER
+    hooks = _PROFILER
+    if hooks is None:
+        torch = sys.modules.get("torch")
+        if torch is None:  # no profiler can be recording; look again later
+            return None
+        try:
+            hooks = (torch._C._autograd._profiler_enabled, torch._C._profiler._RecordFunctionFast)
+        except AttributeError:
+            hooks = False
+        _PROFILER = hooks
+    if not (hooks and hooks[0]()):
+        return None
+    return hooks[1]
 
 
 @dataclasses.dataclass
@@ -70,13 +111,14 @@ class SpanRecord:
 class _ActiveSpan:
     """Context manager for one open span; finishing records it."""
 
-    __slots__ = ("tracer", "name", "attrs", "t0")
+    __slots__ = ("tracer", "name", "attrs", "t0", "prof")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
         self.tracer = tracer
         self.name = name
         self.attrs = attrs
         self.t0 = 0.0
+        self.prof = None
 
     def set(self, **attrs: Any) -> "_ActiveSpan":
         """Attach attributes discovered mid-span (e.g. chosen tiles)."""
@@ -84,14 +126,22 @@ class _ActiveSpan:
         return self
 
     def __enter__(self) -> "_ActiveSpan":
+        rng = profiler_range()
+        if rng is not None:
+            self.prof = rng(self.name)
+            self.prof.__enter__()
         self.t0 = time.perf_counter()
         self.tracer._enter(self)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
         if exc_type is not None:
             self.attrs.setdefault("error", exc_type.__name__)
-        self.tracer._exit(self, time.perf_counter())
+        self.tracer._exit(self, t1)
+        if self.prof is not None:
+            self.prof.__exit__(exc_type, exc, tb)
+            self.prof = None
         return False
 
 
@@ -126,6 +176,8 @@ class Tracer:
         self.epoch = time.perf_counter()
         self._lock = threading.Lock()
         self._records: List[SpanRecord] = []
+        #: loops recorded by :meth:`add_steps`, not yet built into records
+        self._steps: List[Tuple[Sequence[float], Callable, int, int]] = []
         self._local = threading.local()
         self._tids: Dict[int, int] = {}  # thread ident -> small stable tid
 
@@ -168,6 +220,31 @@ class Tracer:
                 )
             )
 
+    def add_steps(self, stamps: Sequence[float],
+                  label: Callable[[int], Tuple[str, Dict[str, Any]]]) -> None:
+        """Record the iterations of a loop that has just ended on this
+        thread, one span each, nested in the innermost open span.
+        ``stamps`` holds each iteration's start and end on the
+        ``perf_counter`` clock, in turn; ``label(i)`` gives iteration
+        ``i``'s name and a fresh attrs dict.  The records are built when
+        the tracer is read, so the loop pays one append here."""
+        entry = (stamps, label, self._tid(), len(self._stack()))
+        with self._lock:
+            self._steps.append(entry)
+
+    def _build_steps(self) -> None:
+        """Turn the loops :meth:`add_steps` holds into records (under the
+        lock)."""
+        for stamps, label, tid, depth in self._steps:
+            for i in range(len(stamps) // 2):
+                name, attrs = label(i)
+                t0 = stamps[2 * i]
+                self._records.append(
+                    SpanRecord(name=name, ts=t0 - self.epoch, dur=stamps[2 * i + 1] - t0,
+                               tid=tid, depth=depth, attrs=attrs)
+                )
+        self._steps = []
+
     def _stack(self) -> List[_ActiveSpan]:
         st = getattr(self._local, "stack", None)
         if st is None:
@@ -209,6 +286,8 @@ class Tracer:
     def records(self) -> List[SpanRecord]:
         """Snapshot of everything recorded so far (copy, sorted by start)."""
         with self._lock:
+            if self._steps:
+                self._build_steps()
             recs = list(self._records)
         return sorted(recs, key=lambda r: (r.ts, -r.depth))
 

@@ -42,8 +42,9 @@ requests; a flat ``metrics`` dict), specialized to single-shot inference:
   each request is an async span (``serve.request``, linked by uid) from
   submit to completion, and each :meth:`~CompiledModelServer.step` emits a
   ``serve.step`` span with ``serve.coalesce`` (stack + seq right-pad) and
-  ``serve.compute`` (the bucketed model execution) children plus
-  per-request queue-wait accounting.
+  ``serve.compute`` (the bucketed model execution, with the ``serve.wait``
+  for its outputs' copy to the host inside) children plus per-request
+  queue-wait accounting.
 
 The port of ``repro``'s server differs in two ways:
 
@@ -399,9 +400,14 @@ class CompiledModelServer:
                 # the cell from its PlanCache; we only account for the
                 # coalescing here
                 with _trace.span("serve.compute"):
+                    res = self.cm.run(batch_feeds)
                     # one host copy per output per batch (see the module
-                    # docstring); requests get numpy views of it below
-                    outs = {k: v.cpu().numpy() for k, v in self.cm.run(batch_feeds).items()}
+                    # docstring); requests get numpy views of it below.  The
+                    # first copy waits for the batch to finish on the device.
+                    with _trace.span("serve.wait") as wait_span:
+                        outs = {k: v.cpu().numpy() for k, v in res.items()}
+                    if _trace.enabled:
+                        wait_span.set(bytes=sum(int(v.nbytes) for v in outs.values()))
             except Exception:
                 # back to the head of the queue in original order; their
                 # serve.request async spans stay open — each closes exactly

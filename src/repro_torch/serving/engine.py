@@ -318,12 +318,15 @@ class ServeEngine:
                 # prefill writes [0, bucket); only [0, plen) is meaningful — the
                 # causal mask means padding beyond plen is never attended by
                 # positions < plen, and decode continues exactly at plen.
-                with _trace.span("engine.prefill", uid=req.uid, plen=plen, bucket=bucket):
+                with (_trace.span("engine.prefill", uid=req.uid, plen=plen, bucket=bucket)
+                      if _trace.enabled else _trace.NULL_SPAN):
                     first_logits, pcache = self.adapter.prefill(
                         padded, plen, self.ecfg.max_len
                     )
                 self._sync_cache_metrics()
-                tok = self._select(first_logits)
+                # the host waits here for the prefill to finish on the device
+                with _trace.span("engine.prefill.wait"):
+                    tok = self._select(first_logits)
                 req.generated.append(tok)
                 req.t_first = time.monotonic()
                 self._count("prefills")
@@ -350,16 +353,19 @@ class ServeEngine:
         toks = np.zeros((self.ecfg.slots, 1), np.int32)
         for slot, req in self.active.items():
             toks[slot, 0] = req.generated[-1]
-        with _trace.span("engine.decode", live=int(self.slot_live.sum())):
+        with (_trace.span("engine.decode", live=int(self.slot_live.sum()))
+              if _trace.enabled else _trace.NULL_SPAN):
             logits, self.cache = self.adapter.decode(toks, self.slot_pos, self.cache)
         self._count("decode_steps")
-        if self.ecfg.greedy:
-            # argmax on the device: transfers `slots` ints, not slots×vocab floats
-            nxt = torch.argmax(torch.as_tensor(logits), dim=-1).cpu().numpy()
-            pick = lambda slot: int(nxt[slot])  # noqa: E731
-        else:
-            logits_np = torch.as_tensor(logits).cpu().numpy()
-            pick = lambda slot: self._select(logits_np[slot])  # noqa: E731
+        # the host waits here for the decode step to finish on the device
+        with _trace.span("engine.decode.wait"):
+            if self.ecfg.greedy:
+                # argmax on the device: transfers `slots` ints, not slots×vocab floats
+                nxt = torch.argmax(torch.as_tensor(logits), dim=-1).cpu().numpy()
+                pick = lambda slot: int(nxt[slot])  # noqa: E731
+            else:
+                logits_np = torch.as_tensor(logits).cpu().numpy()
+                pick = lambda slot: self._select(logits_np[slot])  # noqa: E731
         for slot in list(self.active):
             if not self.slot_live[slot]:
                 continue

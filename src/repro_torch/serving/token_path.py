@@ -29,7 +29,13 @@ import torch
 
 from ..backend.plan import PlanCache
 from ..core import pqir
-from ..core.compile import CompiledModel, _resolve_autotuner, compile_model, resolve_device
+from ..core.compile import (
+    CompiledModel,
+    _resolve_autotuner,
+    compile_model,
+    host_to_device,
+    resolve_device,
+)
 from ..core.patterns import ATTN_P_SCALE, emit_qattention, emit_round_clip, fc_layer
 from ..core.quant import QuantizedLinearParams, Rescale, RescaleVector, quantize_linear_layer
 
@@ -404,8 +410,8 @@ class CompiledTokenPath:
         """The decode plan's feeds for one step, on the device: the tokens,
         the position onehot and causal mask built from ``pos``, and the
         cache."""
-        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int32, device=self.device)
-        pos_t = torch.as_tensor(np.asarray(pos), dtype=torch.int64, device=self.device)
+        toks = host_to_device(np.asarray(tokens), self.device, torch.int32)
+        pos_t = host_to_device(np.asarray(pos), self.device, torch.int64)
         s = int(next(iter(cache.values())).shape[1])
         ar = torch.arange(s, device=self.device)
         feeds = {

@@ -98,9 +98,14 @@ def test_compiled_model_slice_modules_are_scanned(rel):
     test_source_imports_nothing_of_jax_or_repro(path)
 
 
+#: The port's own tracer: ``repro``'s, extended (profiler ranges, bulk step
+#: records), so no longer a copy; ``test_the_port_tracer_keeps_the_api_of_repro``.
+OWN_TRACER = "obs/trace.py"
+
 #: The port's byte-for-byte copies of ``repro``'s numpy-only modules.
 COPIES = sorted(
-    [str(p.relative_to(PORT)) for d in ("obs", "passes") for p in (PORT / d).glob("*.py")]
+    [str(p.relative_to(PORT)) for d in ("obs", "passes") for p in (PORT / d).glob("*.py")
+     if str(p.relative_to(PORT)) != OWN_TRACER]
     + [f"core/{m}.py" for m in ("pqir", "quant", "patterns", "runtime", "cache", "calibrate",
                                 "toolchain", "export")]
     + ["kernels/pack.py", "distributed/fault_tolerance.py", "data/__init__.py", "data/pipeline.py",
@@ -118,7 +123,31 @@ def test_every_repro_module_has_a_port_counterpart():
 
 
 def test_the_copies_are_all_listed():
-    assert len(COPIES) == 35
+    assert len(COPIES) == 34
+
+
+def _public_api(path: Path) -> dict:
+    """Top-level public names of a module, and the public methods of each
+    of its classes."""
+    api = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            api[node.name] = sorted(
+                n.name for n in getattr(node, "body", [])
+                if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")
+            ) if isinstance(node, ast.ClassDef) else []
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            api.update({t.id: [] for t in targets if isinstance(t, ast.Name) and not t.id.startswith("_")})
+    return api
+
+
+def test_the_port_tracer_keeps_the_api_of_repro():
+    """The port's tracer has every public name, class and method of
+    ``repro``'s, which it extends."""
+    theirs = _public_api(ROOT / "src" / "repro" / OWN_TRACER)
+    ours = _public_api(PORT / OWN_TRACER)
+    assert theirs and all(name in ours and set(meths) <= set(ours[name]) for name, meths in theirs.items())
 
 
 @pytest.mark.parametrize("rel", COPIES)
