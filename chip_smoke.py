@@ -670,7 +670,9 @@ def run_slice(device):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
             step_logits.append(lg)
-        out["decode"] = (step_logits, cache)
+        # the cache is the decode graph's state buffers, which the engine's
+        # steps below (the same bucket) overwrite
+        out["decode"] = (step_logits, {k: v.clone() for k, v in cache.items()})
         out["decode_ms"] = sorted(step_ms)[len(step_ms) // 2]
         if not engine:
             return out
@@ -688,14 +690,17 @@ def run_slice(device):
         out["generated"] = [list(r.generated) for r in reqs]
         return out
 
-    # warm the cuda path once (first launches, allocator), then the counted run
+    # warm the cuda path once (first launches, allocator, the decode graph's
+    # capture), then the counted run
     drive(tps["cuda"])
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(device)
+    graphs_before = tps["cuda"].graph_stats()
     got = drive(tps["cuda"])
     torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(device)
+    graphs = {k: v - graphs_before[k] for k, v in tps["cuda"].graph_stats().items()}
     want = drive(tps["ref"])
 
     same_as_ref(got, want, n, plen, cfg.vocab)
@@ -704,6 +709,11 @@ def run_slice(device):
     if [len(g) for g in got["generated"]] != [16] * 4:
         raise AssertionError(f"engine generated {[len(g) for g in got['generated']]} tokens, want 16 each")
     log("  prefill (4,128), 8 decode steps at (4,512) and 4 engine requests: cuda == ref, bit for bit")
+    log(f"  decode plans as CUDA graphs, the counted run: {graphs['captures']} captures, "
+        f"{graphs['replays']} replays, {graphs['eager']} eager calls (prefills); since compile: "
+        f"{tps['cuda'].graph_stats()}; ref: {tps['ref'].graph_stats()}")
+    if graphs["captures"] or graphs["replays"] < steps or tps["ref"].graph_stats()["replays"]:
+        raise AssertionError(f"decode graphs: counted run {graphs}, ref {tps['ref'].graph_stats()}")
     profiled, head_copies = profile_decode_step(
         tps["cuda"], dec_toks[0], np.full((n,), plen), n, s_max, cfg.d_head)
     if head_copies:
@@ -715,6 +725,7 @@ def run_slice(device):
         decode_tokens_per_s=n / (got["decode_ms"] / 1e3),
         engine_tokens_per_s=got["engine_tokens"] / got["engine_s"],
         peak_bytes=peak, ref_prefill_ms=want["prefill_ms"], ref_decode_step_ms=want["decode_ms"],
+        decode_graphs=graphs,
     )
     # what phase 7 holds its tuned token path against (this run's ref
     # backend), and the cuda path phase 8 decodes on
@@ -765,7 +776,8 @@ def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
     None when the profiler records no device time) and every copy made of a
     per-head q/k/v view — an ``aten::clone`` of a 3-D tensor whose last dim
     is ``d_head``; the token path hands those views to qattention as they
-    are."""
+    are.  The step replays the decode graph; the copies are looked for in
+    one step of the plan's eager loop, which the graph holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -779,9 +791,13 @@ def profile_decode_step(tp, toks, pos, n, s_max, d_head, top=12):
         prof.step()
         tp.decode_step(toks, pos, cache)
         torch.cuda.synchronize()  # the active step ends with the context
-    if not any(e.input_shapes for e in prof.events() if e.name.startswith("aten::")):
+    plan, _ = tp.decode_cm.specialized({"N": n, "S": s_max})
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as eager:
+        plan.execute(tp.decode_feeds(toks, pos, cache))
+        torch.cuda.synchronize()
+    if not any(e.input_shapes for e in eager.events() if e.name.startswith("aten::")):
         raise AssertionError("the profiler recorded no input shapes: the view copies cannot be checked")
-    copies = [e.input_shapes[0] for e in prof.events()
+    copies = [e.input_shapes[0] for e in eager.events()
               if e.name == "aten::clone" and e.input_shapes and len(e.input_shapes[0]) == 3
               and e.input_shapes[0][-1] == d_head]
     rows = device_rows(prof)
@@ -1234,6 +1250,7 @@ def artifact_child(path, feeds_path, out_path) -> int:
             sources[src] = sources.get(src, 0) + 1
     print(json.dumps({
         "load_s": load_s, "cells": len(cm.plan_cache.keys()), "cache": cm.cache_stats,
+        "graphs": cm.plan_cache.graph_stats,
         "fuse_lower_spans": len(tracer.spans("compile.fuse")) + len(tracer.spans("compile.lower")),
         "sources": sources,
         "foreign_modules": sorted(m for m in sys.modules
@@ -1379,7 +1396,8 @@ def run_tuning(device, ref, card):
     log(f"  artifact: save {save_s:.1f} s ({size / 2**30:.2f} GiB with its sidecar); a fresh "
         f"process loaded it with warm=True in {report['load_s']:.1f} s ({child_s:.1f} s with "
         f"start-up and the run): 0 fuse/lower spans, cache {report['cache']['hits']} hit / "
-        f"{report['cache']['misses']} misses, sources {report['sources']}, no jax/repro module; "
+        f"{report['cache']['misses']} misses, decode graphs {report['graphs']}, sources "
+        f"{report['sources']}, no jax/repro module; "
         f"decode logits and KV == ref bit for bit; plan_diff self-diff identical "
         f"({diff_s:.1f} s)  ({card})")
 
@@ -1706,7 +1724,8 @@ def run_checkpointed_decode(ref, card):
         if step == CKPT_STEPS - 2:  # what the last checkpoint will hold
             last_saved = {"kv": {k: v.clone() for k, v in state["kv"].items()},
                           "tokens": state["tokens"].clone(), "pos": state["pos"].clone()}
-    want = state
+    # the KV is the decode graph's state buffers, which the resilient run overwrites
+    want = dict(state, kv={k: v.clone() for k, v in state["kv"].items()})
 
     crashes = []
 

@@ -28,10 +28,11 @@ tile-annotated — becomes a stable file:
   ``compile.fuse`` / ``compile.lower`` span is emitted — and pre-seeds the
   plan cache by replaying each recorded cell through
   :func:`~repro_torch.backend.lowering.specialize_plan` with a replay tuner
-  that stamps the recorded tiles and source tags back in.  Execution is
-  eager, so a cell's entry is ``(plan, plan.execute)``; ``warm=True`` runs
-  each recorded cell once on zero feeds, which also builds and loads the
-  kernels.
+  that stamps the recorded tiles and source tags back in.  A cell's entry
+  is ``(plan, executor)``, the executor as
+  :func:`~repro_torch.backend.graph.executor_for` makes it; ``warm=True``
+  runs each recorded cell's executor once on zero feeds, which also builds
+  and loads the kernels (and captures a decode cell's CUDA graph).
 * **State slots** — the decode plan's int8 KV cache bindings round-trip.
 * **Provenance** — passes and fusions carry over verbatim; the live record
   re-records the hot cells as they are re-seeded (with their source tags),
@@ -53,6 +54,7 @@ from ..core import pqir
 from ..kernels import ops as kops
 from ..obs.provenance import PlanProvenance
 from .generic import TORCH_DTYPES
+from .graph import executor_for
 from .lowering import specialize_plan
 from .plan import (
     Arg,
@@ -484,11 +486,12 @@ def load_artifact(
             # "zero new specializations" is observable as misses == 0; routed
             # through cache_key so a shared cache gets the same
             # graph-qualified key the model will look up with
-            cm.plan_cache.put(cm.cache_key(bindings), (spec, spec.execute))
+            run = executor_for(spec, cm.device, cm.plan_cache.graph_stats)
+            cm.plan_cache.put(cm.cache_key(bindings), (spec, run))
             if warm:
                 feeds = _zero_feeds(cm, bindings)
                 if feeds is not None:
-                    spec.execute(feeds)
+                    run(feeds)
     if registry is not None:
         cm.attach_metrics(registry)
     return cm

@@ -37,6 +37,7 @@ import torch
 
 from ..backend import StepDraft, build_plan, const_arg, none_arg, specialize_plan, tensor_arg
 from ..backend.generic import _TOPS, SHAPE_OPERANDS
+from ..backend.graph import executor_for
 from ..backend.plan import ExecutionPlan, PlanCache, bindings_key, resolve_bucketing
 from ..backend.registry import lookup
 from ..kernels import ops as kops
@@ -135,6 +136,20 @@ def host_to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=device)
     with _trace.span("xfer.h2d", bytes=int(a.nbytes)):
         return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def host_to_device_async(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """:func:`host_to_device` through page-locked memory, returning before
+    the device has the bytes: the copy is queued on the current stream, so
+    whatever is queued after it reads them, and ``a`` may change at once.
+    The host allocator reuses the page-locked block only after the copy.  On
+    the CPU it is :func:`host_to_device`."""
+    if torch.device(device).type != "cuda":
+        return host_to_device(a, device, dtype)
+    if not _trace.enabled:
+        return torch.as_tensor(a, dtype=dtype).pin_memory().to(device, non_blocking=True)
+    with _trace.span("xfer.h2d", bytes=int(a.nbytes)):
+        return torch.as_tensor(a, dtype=dtype).pin_memory().to(device, non_blocking=True)
 
 
 def _dev(compiler: "Compiler", a) -> torch.Tensor:
@@ -1153,7 +1168,7 @@ class CompiledModel:
         entry = self.plan_cache.get(key)
         if entry is None:
             plan = specialize_plan(self.plan, bindings, tuner=self.autotuner)
-            entry = (plan, plan.execute)
+            entry = (plan, executor_for(plan, self.device, self.plan_cache.graph_stats))
             self.plan_cache.put(key, entry)
         return entry
 

@@ -20,12 +20,23 @@ from typing import Dict
 from . import ops, pack, qact_lut, qattention, qmatmul, ref  # noqa: F401
 
 
+_COUNTERS = (qmatmul.LAUNCHES, qattention.LAUNCHES, qact_lut.LAUNCHES)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`, by name."""
     return {**qmatmul.LAUNCHES, **qattention.LAUNCHES, **qact_lut.LAUNCHES}
 
 
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by name; negative to take back) to the counters: the
+    launches a replayed CUDA graph makes without passing through a wrapper."""
+    for counters in _COUNTERS:
+        for name in counters:
+            counters[name] += counts.get(name, 0)
+
+
 def reset_launch_counts() -> None:
-    for counts in (qmatmul.LAUNCHES, qattention.LAUNCHES, qact_lut.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

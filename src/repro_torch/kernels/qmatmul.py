@@ -173,6 +173,14 @@ def _scratch(device: torch.device, stream: int, ws_numel: int, tiles: int):
     return ws, tickets
 
 
+def take_scratch(device: torch.device, stream: int):
+    """Hand over the split-K scratch of one stream, or None: the caller
+    keeps it alive (a CUDA graph captured on that stream reads it on every
+    replay), and a later launch on the stream allocates its own."""
+    with _SCRATCH_LOCK:
+        return _SCRATCH.pop((device.index, stream), None)
+
+
 def unpack_int4_nk(w_p: torch.Tensor) -> torch.Tensor:
     """``(Np, Kp // 2)`` uint8 nibble pairs → ``(Np, Kp)`` int8: the low
     nibble of byte r is k = 2r, the high nibble k = 2r + 1, both

@@ -72,6 +72,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..backend.autotune import TuneJob
+from ..backend.graph import executor_for
 from ..backend.lowering import specialize_plan
 from ..backend.plan import bindings_key
 from ..core.compile import BATCH_AXIS, CompiledModel
@@ -487,7 +488,8 @@ class CompiledModelServer:
             plan = specialize_plan(self.cm.plan, job.bindings, tuner=self.autotuner)
             # cache_key: graph-qualified when the cache is fleet-shared, the
             # plain bindings key otherwise — must match what step() looks up
-            self.cm.plan_cache.put(self.cm.cache_key(job.bindings), (plan, plan.execute))
+            run = executor_for(plan, self.cm.device, self.cm.plan_cache.graph_stats)
+            self.cm.plan_cache.put(self.cm.cache_key(job.bindings), (plan, run))
             self._count("tuned_swaps")
             self.registry.counter("autotune.swaps").inc()
 

@@ -13,7 +13,10 @@ int8 attention, output projection, saturating residuals, MLP — compiles to
 
 Both plans share one :class:`~repro_torch.backend.plan.PlanCache`.  On the
 ``cuda`` backend the qkv/down projections run the packed-int4 kernel, o/up the
-int8 kernel, and every head of every layer the fused attention kernel.
+int8 kernel, and every head of every layer the fused attention kernel.  On a
+CUDA device each decode bucket's plan replays as one CUDA graph
+(:mod:`repro_torch.backend.graph`): the cache a decode step returns is the
+graph's state buffers, overwritten by the next step at that bucket.
 
 :class:`CompiledTokenAdapter` plugs the pair into
 :class:`repro_torch.serving.engine.ServeEngine`.  KV caches, logits and the
@@ -33,7 +36,7 @@ from ..core.compile import (
     CompiledModel,
     _resolve_autotuner,
     compile_model,
-    host_to_device,
+    host_to_device_async,
     resolve_device,
 )
 from ..core.patterns import ATTN_P_SCALE, emit_qattention, emit_round_clip, fc_layer
@@ -379,7 +382,10 @@ class CompiledTokenPath:
 
     def decode(self, tokens, onehot, mask, cache: Dict[str, torch.Tensor]):
         """One decode step at any extents (padded to the bucket and sliced
-        back).  Returns (logits (N,1,V), next cache dict)."""
+        back).  Returns (logits (N,1,V), next cache dict).  On a CUDA
+        device the next cache is (a view of) the bucket's graph state
+        buffers: the next decode at that bucket overwrites it, and a cache
+        fed from elsewhere is copied in, left as it was."""
         feeds = {"tokens": tokens, "onehot": onehot, "mask": mask}
         feeds.update(cache)
         outs = self.decode_cm.run(feeds)
@@ -395,7 +401,11 @@ class CompiledTokenPath:
         directly (still fetched from the shared PlanCache every call, so cell
         accounting matches :meth:`decode`); otherwise the step goes through
         :meth:`decode`, which pads and slices.  Returns (logits (N, V) on the
-        device, next cache dict)."""
+        device, next cache dict).  On a CUDA device the step replays the
+        bucket's CUDA graph: the returned cache is its state buffers, which
+        the next step at that bucket overwrites (feeding them back costs no
+        copy, and in-place writes into them are what that step reads); the
+        logits are the caller's own."""
         feeds = self.decode_feeds(tokens, pos, cache)
         n, s = feeds["onehot"].shape[:2]
         cm = self.decode_cm
@@ -409,9 +419,10 @@ class CompiledTokenPath:
     def decode_feeds(self, tokens, pos, cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The decode plan's feeds for one step, on the device: the tokens,
         the position onehot and causal mask built from ``pos``, and the
-        cache."""
-        toks = host_to_device(np.asarray(tokens), self.device, torch.int32)
-        pos_t = host_to_device(np.asarray(pos), self.device, torch.int64)
+        cache.  The tokens and positions cross from the host without a wait
+        (through page-locked memory on a CUDA device)."""
+        toks = host_to_device_async(np.asarray(tokens), self.device, torch.int32)
+        pos_t = host_to_device_async(np.asarray(pos), self.device, torch.int64)
         s = int(next(iter(cache.values())).shape[1])
         ar = torch.arange(s, device=self.device)
         feeds = {
@@ -431,6 +442,11 @@ class CompiledTokenPath:
 
     def cache_stats(self) -> Dict[str, float]:
         return self.plan_cache.stats
+
+    def graph_stats(self) -> Dict[str, int]:
+        """How the shared cache's plans ran: ``captures`` (CUDA graphs
+        captured), ``replays`` and ``eager`` calls."""
+        return dict(self.plan_cache.graph_stats)
 
 
 class CompiledTokenAdapter:
@@ -458,8 +474,9 @@ class CompiledTokenAdapter:
         # Deliberately in place: the prefilled rows are written straight into
         # the slot's region of the device cache, with no host round trip and
         # no copy of the other slots.  The cache tensors belong to the engine
-        # (fresh outputs of the last decode step, or of init_cache), so no
-        # other holder sees the write.
+        # (what the last decode step returned, or init_cache's): on a CUDA
+        # device the decode graph's state buffers, which its next replay
+        # reads, so the write is seen there and nowhere else.
         for name, buf in cache.items():
             rows = pcache[name]
             n = min(rows.shape[1], buf.shape[1])
