@@ -5,9 +5,9 @@ Drives the port's main path on one CUDA card and fails loudly:
 
 1. environment — the card's name and power limit, torch and CUDA versions;
 2. build — ``nvcc`` compiles ``kernels/csrc/*.cu`` (qmatmul, qattention,
-   qact_lut) for sm_90a, one process per source, all at once;
+   qact_lut, qmoe) for sm_90a, one process per source, all at once;
 3. kernels — each hand-written kernel (qmatmul, qmatmul_packed, qattention,
-   qact_lut) held bit-exact against its plain PyTorch version at the shapes
+   qact_lut, qmoe) held bit-exact against its plain PyTorch version at the shapes
    its paths give it (the token path; slice A's three layers, slice B's five
    conv GEMMs and its FC head at their largest buckets; K off the 16-byte
    copies; the MLP's LUT layers), then timed with CUDA events beside its
@@ -21,8 +21,13 @@ Drives the port's main path on one CUDA card and fails loudly:
    activation table (the main path's LUT route) at slice A's two LUT
    layers, at the decode route with split-K and on the packed lane, each
    timed beside the same matmul without a table and beside matmul →
-   standalone qact_lut (→ shift); and every qmatmul kernel instance's
-   static shared memory and registers as the driver reports them;
+   standalone qact_lut (→ shift); the routed-expert step (qmoe's five
+   launches) at one Mellum2 expert layer's widths (64 experts of 896 over
+   2304, top-8) at the benchmark's decode step (64 tokens) and its largest
+   prefill bucket (4,608 tokens), timed beside its plain version and its
+   bound (the router and the weights of the experts its rows can reach);
+   and every qmatmul kernel instance's static shared memory and registers
+   as CUDA reports them;
 4. token path — the compiled token path at Qwen3-1.7B widths (vocab 151936,
    d_model 2048, 16 heads of 128, d_ff 6144; depth cut to ``N_LAYERS``),
    built twice from one seed — backend ``cuda`` and backend ``ref`` — and
@@ -144,11 +149,22 @@ Drives the port's main path on one CUDA card and fails loudly:
    lost or served twice, finite QAT losses and the W8A8 loss drift under
    0.15 after 200 QAT steps), the four compiled examples launching qmatmul;
    each child counts its own launches from its start;
-14. summary — one JSON line of the kernels with their launch counts summed
-   over the served runs of phases 4–13, then the card line, then the
+14. Mellum2 — the compiled token path at Mellum2-12B-A2.5B's widths
+   (vocab 98304, d_model 2304, 32 query heads over 4 KV heads of 128, 64
+   routed int8 experts of 896, top-8; one period of its layer pattern,
+   three window layers with 1,024-row rings and a full one), built twice
+   from one seed — backend ``cuda`` and backend ``ref`` — and served by
+   ``ServeEngine`` through ``CompiledTokenAdapter`` (``MELLUM2_REQUESTS``:
+   prompts under, across and past the window, slots taken over): every
+   logits row, every prefill's K/V rows, the final full caches and rings
+   and the generated tokens identical; one fused ``qmoe`` step a layer,
+   exactly five qmoe launches a layer per prefill and per decode step, the
+   decode steps all graph replays;
+15. summary — one JSON line of the kernels with their launch counts summed
+   over the served runs of phases 4–14, then the card line, then the
    ``{"ok": true, ...}`` line.
 
-Each of phases 4–12 zeroes the launch counters just before each counted run
+Each of phases 4–12 and 14 zeroes the launch counters just before each counted run
 and reads them just after; a kernel of that path launched no time fails
 (the zoo's served runs, phase 10's training runs, phase 11's mesh runs and
 phase 12's runs launch none of the hand-written kernels — they compute in
@@ -265,6 +281,12 @@ ATTN_SHAPES = [(1, 512), (1, 77), (128, 128), (77, 96)]  # (S, T) at B=4, dh=128
 ATTN_VIEW_SHAPES = [(1, 512), (1, 77), (128, 128)]
 ATTN_D, ATTN_HEAD = 2048, 5
 DECODE_M = 4  # rows of a decode step at 4 slots
+#: One Mellum2-12B-A2.5B expert layer (64 SwiGLU experts of width 896 over
+#: d_model 2304, top-8) for the qmoe rows: the benchmark's decode step (64
+#: sessions, row tile 16) and its largest prefill bucket (4,608 tokens,
+#: row tile 64).
+QMOE_D, QMOE_F, QMOE_E, QMOE_K = 2304, 896, 64, 8
+QMOE_TOKENS = (64, 4608)
 #: Phase 8's fleet FFN: d_model and d_ff of src/repro/configs/qwen3_1_7b.py;
 #: batches of FLEET_MAX_BATCH requests padded to each seq bucket.
 FLEET_D, FLEET_FF = 2048, 6144
@@ -562,6 +584,73 @@ def _check_attention(flush, rows, worst, ops, lut, scal, cluster, tag):
         f"threads={route['threads']} keys/block={route['keys_per_block']}]")
 
 
+def qmoe_operands(device):
+    """Seeded operands of one Mellum2 expert layer as the plan lays them
+    out (``kernels/qmoe.py::prepare``): the weights, the exp and SiLU
+    tables, and the scalars."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import moe
+    from repro_torch.kernels import qmoe as kqmoe
+
+    p = moe.make_moe_params(np.random.default_rng(3), QMOE_D, QMOE_F, QMOE_E, QMOE_K, 0.05)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def pair(r):
+        return float(np.float32(r.quant_scale)), float(r.quant_shift)
+
+    wr, gu, wd = kqmoe.prepare(dev(p.router), dev(p.gate), dev(p.up), dev(p.down))
+    s = kqmoe.MoEScalars(top_k=QMOE_K, router_scale=p.router_scale, lut_scale=moe.ATTN_LUT_SCALE,
+                         p_scale=moe.MOE_P_SCALE, gate=pair(p.gate_rescale), up=pair(p.up_rescale),
+                         down=pair(p.down_rescale), h_scale=p.h_scale,
+                         out_rescale=float(np.float32(1.0 / moe.MOE_P_SCALE)))
+    return (wr, gu, wd, dev(moe.build_exp_lut()), dev(p.silu)), s
+
+
+def qmoe_bound(tokens):
+    """(bytes, ops) one routed-expert step over ``tokens`` rows needs: the
+    router and the weights of the experts its ``tokens · k`` routed rows can
+    reach read; the rows read and written; the routed hidden ``h`` and
+    outputs ``y`` written and read back; the router's and the ``k`` chosen
+    experts' operations (``portbench/work/tokpath-mellum2.py``'s count)."""
+    d, f, e, k = QMOE_D, QMOE_F, QMOE_E, QMOE_K
+    pairs = tokens * k
+    nbytes = e * d + min(e, pairs) * 3 * d * f + 2 * tokens * d + 2 * pairs * (f + d) + 512
+    return nbytes, 2.0 * tokens * d * e + 2.0 * pairs * 3 * d * f
+
+
+def _check_qmoe(rng, flush, rows, worst, operands, tokens):
+    import torch
+
+    from repro_torch.kernels import qmoe as kqmoe
+
+    consts, s = operands
+    x = torch.from_numpy(rng.integers(-40, 41, (tokens, QMOE_D)).astype("int8")).to(consts[0].device)
+    before = kqmoe.LAUNCHES["qmoe"]
+    got = kqmoe.qmoe(x, *consts, s)
+    if kqmoe.LAUNCHES["qmoe"] - before != kqmoe.LAUNCHES_PER_CALL:
+        raise AssertionError(f"qmoe counted {kqmoe.LAUNCHES['qmoe'] - before} launches a call, "
+                             f"want {kqmoe.LAUNCHES_PER_CALL}")
+    want = kqmoe.qmoe_plain(x, *consts, s)
+    err = _max_err(got, want)
+    worst["qmoe"] = max(worst["qmoe"], err)
+    bm = kqmoe.choose_bm(tokens, QMOE_K, QMOE_E)
+    shape = f"T={tokens},D={QMOE_D},F={QMOE_F},E={QMOE_E},k={QMOE_K}"
+    if err or len(torch.unique(want)) < 50:
+        raise AssertionError(f"qmoe {shape}: max |kernel - plain| = {err}, "
+                             f"{len(torch.unique(want))} distinct output codes")
+    b_ms, b_by = bound_ms(*qmoe_bound(tokens))
+    ms = time_ms(lambda: kqmoe.qmoe(x, *consts, s), flush)
+    pms = time_ms(lambda: kqmoe.qmoe_plain(x, *consts, s), flush)
+    rows.append(dict(kernel="qmoe", shape=shape, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                     max_abs_err=err, route={"bm": bm, "launches": kqmoe.LAUNCHES_PER_CALL}))
+    log(f"  qmoe            {shape}: exact, {ms:.4f} ms (plain {pms:.4f} ms, bound {b_ms:.3g} ms "
+        f"by {b_by}) [bm={bm}, {kqmoe.LAUNCHES_PER_CALL} launches]")
+
+
 def check_kernels(device, flush, rows):
     import numpy as np
     import torch
@@ -569,7 +658,7 @@ def check_kernels(device, flush, rows):
     from repro_torch.kernels import qattention as qatt
 
     rng = np.random.default_rng(0)
-    worst = {"qmatmul": 0, "qmatmul_packed": 0, "qattention": 0, "qact_lut": 0}
+    worst = {"qmatmul": 0, "qmatmul_packed": 0, "qattention": 0, "qact_lut": 0, "qmoe": 0}
     for k, n, bits, relu in MATMUL_SHAPES:
         for m in MATMUL_M:
             _check_matmul(rng, device, flush, rows, worst, m, k, n, bits, relu)
@@ -609,6 +698,9 @@ def check_kernels(device, flush, rows):
         for c in sizes:
             _check_attention(flush, rows, worst, ops, lut, scal, c,
                              f"B={b},S={s},T={t},dh={dh},views,h={ATTN_HEAD}")
+    moe_ops = qmoe_operands(device)
+    for tokens in QMOE_TOKENS:
+        _check_qmoe(rng, flush, rows, worst, moe_ops, tokens)
     return worst
 
 
@@ -3192,6 +3284,161 @@ def lut_row(rows, worst, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: Mellum2's block on the compiled token path
+# ---------------------------------------------------------------------------
+
+#: Mellum2-12B-A2.5B's widths (the benchmark's tokpath-mellum2): 32 query
+#: heads over 4 KV heads of 128, 1,024-row rings on the window layers, 64
+#: routed experts of width 896, top-8; one period of its layer pattern.
+MELLUM2 = dict(vocab=98304, d_model=2304, n_heads=32, n_kv_heads=4, head_dim=128, n_layers=4,
+               layer_kinds=("window", "window", "window", "full"), window=1024,
+               n_experts=64, top_k=8, d_expert=896)
+#: The engine's requests (prompt tokens, new tokens) on MELLUM2_SLOTS slots:
+#: a prompt under the window whose decode wraps the rings, prompts of one
+#: to two windows, and two shorter ones that take over freed slots (stale
+#: ring rows from the slot's earlier request).
+MELLUM2_REQUESTS = ((1013, 24), (1100, 12), (1500, 24), (2100, 16), (300, 20), (700, 24))
+MELLUM2_SLOTS, MELLUM2_MAX_LEN, MELLUM2_BUCKET = 4, 2304, 128
+
+
+class _RecordingAdapter:
+    """A token path adapter that keeps a copy of every logits row and every
+    prefill's K/V rows it hands the engine."""
+
+    def __init__(self, inner):
+        self.inner, self.cfg = inner, inner.cfg
+        self.logits, self.prefilled = [], []
+
+    def init_cache(self, slots, max_len):
+        return self.inner.init_cache(slots, max_len)
+
+    def prefill(self, padded, plen, max_len):
+        last, pcache = self.inner.prefill(padded, plen, max_len)
+        self.logits.append(last.clone())
+        self.prefilled.append({k: v.clone() for k, v in pcache.items()})
+        return last, pcache
+
+    def scatter(self, cache, slot, pcache):
+        return self.inner.scatter(cache, slot, pcache)
+
+    def decode(self, toks, pos, cache):
+        logits, cache = self.inner.decode(toks, pos, cache)
+        self.logits.append(logits.clone())
+        return logits, cache
+
+
+def run_mellum2(device, card):
+    """Phase 14: the compiled token path at Mellum2's widths, built from one
+    seed on backends ``cuda`` and ``ref`` and driven by ``ServeEngine``
+    through ``CompiledTokenAdapter``: every logits row the engine reads, every
+    prefill's K/V rows (the rings in ring order), the final caches (full
+    layers and rings, every slot) and the generated tokens equal, bit for
+    bit.  On ``cuda`` each expert layer is one fused ``qmoe`` step and the
+    decode plan replays as one CUDA graph; the counted run (after a warm
+    run) launches qmoe exactly 5 times a layer per prefill and per decode
+    step.  Returns the phase's record and the counted run's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.qmoe import LAUNCHES_PER_CALL
+    from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.serving.token_path import (
+        CompiledTokenAdapter, CompiledTokenPath, TokenPathConfig, make_token_params,
+    )
+
+    cfg = TokenPathConfig(**MELLUM2)
+    t0 = time.perf_counter()
+    params = make_token_params(cfg, seed=0)
+    tps = {b: CompiledTokenPath(cfg, params, backend=b, device=device) for b in ("cuda", "ref")}
+    build_s = time.perf_counter() - t0
+    for b, tp in tps.items():
+        for what, cm in (("prefill", tp.prefill_cm), ("decode", tp.decode_cm)):
+            if cm.stats["fused_qmoe"] != cfg.n_layers:
+                raise AssertionError(f"{b} {what}: {cm.stats['fused_qmoe']} fused qmoe steps, want "
+                                     f"one a layer ({cfg.n_layers})")
+    log(f"  params + compile of both backends: {build_s:.1f} s; each plan: one fused qmoe step a "
+        f"layer; cuda decode {tps['cuda'].decode_cm.stats}")
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(1, cfg.vocab, (p,)).astype(np.int32) for p, _ in MELLUM2_REQUESTS]
+
+    def drive(tp):
+        ad = _RecordingAdapter(CompiledTokenAdapter(tp))
+        eng = ServeEngine(ecfg=EngineConfig(slots=MELLUM2_SLOTS, max_len=MELLUM2_MAX_LEN,
+                                            prefill_bucket=MELLUM2_BUCKET), adapter=ad)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=n)
+                for i, (p, (_, n)) in enumerate(zip(prompts, MELLUM2_REQUESTS))]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        return dict(engine_s=time.perf_counter() - t, adapter=ad, steps=eng.metrics["decode_steps"],
+                    prefills=eng.metrics["prefills"], generated=[list(r.generated) for r in reqs],
+                    cache={k: v.clone() for k, v in eng.cache.items()})
+
+    drive(tps["cuda"])  # first launches, prefill buckets, the decode graph's capture
+    graphs_before = tps["cuda"].graph_stats()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    got = drive(tps["cuda"])
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    graphs = {k: v - graphs_before[k] for k, v in tps["cuda"].graph_stats().items()}
+    want = drive(tps["ref"])
+
+    if got["generated"] != want["generated"]:
+        raise AssertionError(f"engine generation differs: {got['generated']} vs {want['generated']}")
+    lens = [len(g) for g in got["generated"]]
+    if lens != [n for _, n in MELLUM2_REQUESTS]:
+        raise AssertionError(f"engine generated {lens} tokens, want {[n for _, n in MELLUM2_REQUESTS]}")
+    ga, wa = got["adapter"], want["adapter"]
+    if len(ga.logits) != len(wa.logits) or len(ga.prefilled) != len(MELLUM2_REQUESTS):
+        raise AssertionError(f"{len(ga.logits)} vs {len(wa.logits)} logits calls, "
+                             f"{len(ga.prefilled)} prefills")
+    for i, (a, b) in enumerate(zip(ga.logits, wa.logits)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"logits call {i}: non-finite values")
+        _same(a, b, f"logits call {i}")
+    for i, (a, b) in enumerate(zip(ga.prefilled, wa.prefilled)):
+        for name in b:
+            _same(a[name], b[name], f"prefill {i} rows {name}")
+    for name in want["cache"]:
+        _same(got["cache"][name], want["cache"][name], f"final cache {name}")
+    rings = sorted(tps["cuda"].ring_inputs)
+    if len(rings) != 6 or any(got["cache"][r].shape[1] != cfg.window for r in rings):
+        raise AssertionError(f"ring caches: {[(r, tuple(got['cache'][r].shape)) for r in rings]}")
+    calls = got["prefills"] + got["steps"]
+    want_moe = LAUNCHES_PER_CALL * cfg.n_layers * calls
+    if launches["qmoe"] != want_moe:
+        raise AssertionError(f"qmoe launches {launches['qmoe']}, want {want_moe} "
+                             f"({LAUNCHES_PER_CALL} a layer for each of {calls} plan runs)")
+    missing = [k for k in ("qmatmul", "qmatmul_packed", "qattention") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the Mellum2 token path: {missing}")
+    if graphs["captures"] or graphs["replays"] != got["steps"] or graphs["eager"] != got["prefills"]:
+        raise AssertionError(f"decode graphs in the counted run: {graphs}, want {got['steps']} replays "
+                             f"and {got['prefills']} eager prefills")
+    tokens = sum(lens)
+    log(f"  {len(MELLUM2_REQUESTS)} requests (prompts {[p for p, _ in MELLUM2_REQUESTS]}) on "
+        f"{MELLUM2_SLOTS} slots: cuda == ref in all {len(ga.logits)} logits rows, every prefill's K/V "
+        f"rows, the final caches (2 full, 6 ring) and {tokens} generated tokens, bit for bit")
+    log(f"  counted run: {got['prefills']} prefills, {got['steps']} decode steps as "
+        f"{graphs['replays']} graph replays (captures {graphs['captures']}, eager {graphs['eager']}); "
+        f"launches {launches}; engine {got['engine_s']:.2f} s = {tokens / got['engine_s']:.1f} tokens/s "
+        f"(ref {want['engine_s']:.2f} s); peak allocated {peak / 2**30:.2f} GiB  ({card})")
+    rec = dict(config=dict(MELLUM2), requests=[list(r) for r in MELLUM2_REQUESTS],
+               slots=MELLUM2_SLOTS, max_len=MELLUM2_MAX_LEN, build_s=build_s,
+               prefills=got["prefills"], decode_steps=got["steps"], logits_calls=len(ga.logits),
+               graphs=graphs, engine_s=got["engine_s"], ref_engine_s=want["engine_s"],
+               tokens=tokens, peak_bytes=peak)
+    del tps, got, want
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 13: the port's examples, each run as a user runs it
 # ---------------------------------------------------------------------------
 
@@ -3288,23 +3535,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    log(f"[1/14] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    log(f"[1/15] environment: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
-    log(f"[2/14] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
+    log(f"[2/15] build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc sm_90a into {_build.BUILD_DIR.name}/)")
 
-    log("[3/14] kernels against their plain versions (tolerance 0)")
+    log("[3/15] kernels against their plain versions (tolerance 0)")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     rows = []
     instances = kernel_instances()
     worst = check_kernels(device, flush, rows)
 
-    log(f"[4/14] token path: compiled token path, backend cuda vs backend ref  ({card})")
+    log(f"[4/15] token path: compiled token path, backend cuda vs backend ref  ({card})")
     perf, launches_tok, ref = run_slice(device)
     log(f"  prefill (4,128): {perf['prefill_ms']:.2f} ms; decode step (4,512): "
         f"{perf['decode_step_ms']:.2f} ms = {perf['decode_tokens_per_s']:.1f} tokens/s; engine "
@@ -3327,7 +3574,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the token path: {missing}")
 
-    log(f"[5/14] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
+    log(f"[5/15] slice A: the paper's Tanh/Sigmoid MLP {' -> '.join(map(str, MLP_WIDTHS))}, "
         f"CompiledModelServer(max_batch={MLP_MAX_BATCH}), backend cuda vs ref  ({card})")
     stats_a = {"fused_lut": 2, "fused_qlinear": 3}
     perf_a, launches_a = run_served(
@@ -3340,7 +3587,7 @@ def main() -> int:
     log(f"  launches on slice A: {launches_a} (no standalone LUT or shift kernel in the profiled "
         "forward)")
 
-    log(f"[6/14] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
+    log(f"[6/15] slice B: the paper's §5 CNN, {len(CNN_CONVS)} stride-2 convs "
         f"{[c[0] for c in CNN_CONVS]} + FC {CNN_CLASSES} at {CNN_IN}, "
         f"CompiledModelServer(max_batch={CNN_MAX_BATCH}), backend cuda vs ref  ({card})")
     perf_b, launches_b = run_served(
@@ -3353,7 +3600,7 @@ def main() -> int:
                f"; {perf_b['conv_steps_on_qmatmul']} conv steps ran on the qmatmul kernel")
     log(f"  launches on slice B: {launches_b}")
 
-    log(f"[7/14] autotune: the token path tuned on the card (cold, then warm from the tile "
+    log(f"[7/15] autotune: the token path tuned on the card (cold, then warm from the tile "
         f"cache), its decode plan saved and served from a fresh process, slice A tuned in its "
         f"server's background; every output against the ref backend  ({card})")
     tuning, launches_tune = run_tuning(device, ref, card)
@@ -3361,7 +3608,7 @@ def main() -> int:
         f"tuning the token path: {tuning['tuning_launches']}; the slice A server, its "
         f"candidates measured between batches included: {tuning['slice_a']['launches']}")
 
-    log(f"[8/14] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
+    log(f"[8/15] fleet and checkpoints: a two-axis FFN ({FLEET_D} -> {FLEET_FF} -> {FLEET_D}) served "
         f"by {FLEET_REPLICAS} replicas warm-started from its artifact behind a ShardedRouter, one "
         f"replica failing; phase 4's decode checkpointed through a crash; the generic pooling ops  "
         f"({card})")
@@ -3378,7 +3625,7 @@ def main() -> int:
         f"{launches_8['qmatmul_packed']}, qattention {launches_8['qattention']}; phase 8 took "
         f"{time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[9/14] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
+    log(f"[9/15] model zoo: qwen3_1_7b at its full config served by ServeEngine's default "
         f"adapter in three postures; its weights cut to {ZOO_CUT_LAYERS} layers and every other "
         f"architecture at reduced() on the card against the CPU; QuantizedLinear on the qmatmul "
         f"kernel  ({card})")
@@ -3387,7 +3634,7 @@ def main() -> int:
     log(f"  launches in phase 9's served run (QuantizedLinear, backend cuda): {launches_zoo}; "
         f"phase 9 took {time.perf_counter() - t:.1f} s")
 
-    log(f"[10/14] training: qwen3_1_7b at its full config trained on the card by "
+    log(f"[10/15] training: qwen3_1_7b at its full config trained on the card by "
         f"repro_torch.launch.train, plain and with QAT, one step profiled; its weights cut to "
         f"{TRAIN_CUT_LAYERS} layers, card vs CPU; resume; grad_compress  ({card})")
     t = time.perf_counter()
@@ -3395,7 +3642,7 @@ def main() -> int:
     log(f"  launches in phase 10's training runs: {launches_train} (training computes in plain "
         f"PyTorch, as repro trains in XLA); phase 10 took {time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[11/14] mesh: a one-rank NCCL process group and a (1, 1) (data, model) DeviceMesh on the card; "
+    log(f"[11/15] mesh: a one-rank NCCL process group and a (1, 1) (data, model) DeviceMesh on the card; "
         f"qwen3_1_7b at its full config trained on it ({MESH_STEPS} steps, against phase 10), served cut to "
         f"{ZOO_CUT_LAYERS} layers (against the unsharded steps), checkpointed from it and restored  ({card})")
     t = time.perf_counter()
@@ -3403,7 +3650,7 @@ def main() -> int:
     log(f"  launches in phase 11's mesh runs: {launches_mesh} (the sharded steps compute in plain PyTorch); "
         f"phase 11 took {time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[12/14] recurrent families at full width: {RECUR_ARCH} at its published config served by "
+    log(f"[12/15] recurrent families at full width: {RECUR_ARCH} at its published config served by "
         f"ServeEngine's default adapter ({RECUR_REQUESTS} requests of {RECUR_PROMPT} tokens), its chunked "
         f"WKV6 against the per-step plain version at one layer's shape, cut to {ZOO_CUT_LAYERS} layers card vs "
         f"CPU, trained {RECUR_TRAIN_STEPS} steps  ({card})")
@@ -3414,17 +3661,23 @@ def main() -> int:
     log(f"  launches in phase 12's served and training runs: {launches_rec} (the recurrent families compute in "
         f"plain PyTorch, as repro computes them in XLA); phase 12 took {time.perf_counter() - t:.1f} s  ({card})")
 
-    log(f"[13/14] examples: python -m repro_torch.examples.<name> for each of "
+    log(f"[13/15] examples: python -m repro_torch.examples.<name> for each of "
         f"{', '.join(EXAMPLE_CHECKS)}, on the card at the originals' defaults  ({card})")
     t = time.perf_counter()
     examples, launches_ex = run_examples(card)
     examples_s = time.perf_counter() - t
     log(f"  launches in phase 13's six runs: {launches_ex}; phase 13 took {examples_s:.1f} s  ({card})")
 
+    log(f"[14/15] Mellum2: the compiled token path at Mellum2-12B-A2.5B's widths ({MELLUM2['n_layers']} "
+        f"layers, one period of its pattern), served by ServeEngine, backend cuda vs ref  ({card})")
+    t = time.perf_counter()
+    mellum2, launches_mel = run_mellum2(device, card)
+    log(f"  phase 14 took {time.perf_counter() - t:.1f} s  ({card})")
+
     launches = {k: launches_tok.get(k, 0) + launches_a.get(k, 0) + launches_b.get(k, 0)
                 + launches_tune.get(k, 0) + launches_8.get(k, 0) + launches_zoo.get(k, 0)
                 + launches_train.get(k, 0) + launches_mesh.get(k, 0) + launches_rec.get(k, 0)
-                + launches_ex.get(k, 0)
+                + launches_ex.get(k, 0) + launches_mel.get(k, 0)
                 for k in launches_tok}
 
     # per layer per decode step at (N, S) = (4, 512): the kernel's launches
@@ -3442,11 +3695,13 @@ def main() -> int:
         "qmatmul": summed("qmatmul", {f"M={DECODE_M},K=2048,N=2048,w8", f"M={DECODE_M},K=2048,N=6144,w8,relu"}),
         "qmatmul_packed": summed("qmatmul_packed", {f"M={DECODE_M},K=2048,N=6144,w4", f"M={DECODE_M},K=6144,N=2048,w4"}),
         "qattention": summed("qattention", {"B=4,S=1,T=512,dh=128"}, mult=16),
+        "qmoe": summed("qmoe", {f"T={QMOE_TOKENS[0]},D={QMOE_D},F={QMOE_F},E={QMOE_E},k={QMOE_K}"}),
     }
     sources = {
         "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:217"),
         "qmatmul_packed": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:170"),
         "qattention": ("src/repro_torch/kernels/csrc/qattention.cu", "src/repro/kernels/qattention.py:105"),
+        "qmoe": ("src/repro_torch/kernels/csrc/qmoe.cu", None),  # new in the port: no TPU original
     }
     kernels = []
     for name, (tot, sel) in summaries.items():
@@ -3460,13 +3715,15 @@ def main() -> int:
             "bound_by": b_by, "library_ms": tot["library_ms"],
         })
     kernels.append(lut_row(rows, worst, launches))
-    log("[14/14] summary: launches are summed over the served runs of phases 4-13 (phase 7: "
+    log("[15/15] summary: launches are summed over the served runs of phases 4-14 (phase 7: "
         "the tuned and the warm-started token path's drives, no tuning candidate; phase 8: "
         "the fleet's rounds and failover wave and the resilient decode; phase 9: "
         "QuantizedLinear on backend cuda; phase 10's training runs, phase 11's mesh runs and phase 12's "
-        "recurrent runs launch none; phase 13: the six examples' runs); "
+        "recurrent runs launch none; phase 13: the six examples' runs; phase 14: the Mellum2 "
+        "token path's counted run); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
-        "kernels and qattention (16 head launches), and per slice-A forward at batch "
+        "kernels and qattention (16 head launches), per Mellum2 expert layer at the benchmark's "
+        f"decode step ({QMOE_TOKENS[0]} tokens, five launches) for qmoe, and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
         "launches that carried a table, its ms/plain_ms/bound_ms those of slice A's two "
         "matmuls with their tables, and its routes hold the time the tables add (with its "
@@ -3481,13 +3738,14 @@ def main() -> int:
                    "slice": perf, "slice_a": perf_a,
                    "slice_b": perf_b, "autotune": tuning, "fleet": fleet,
                    "checkpoint": checkpoint, "pooling": pooling, "zoo": zoo, "training": training,
-                   "mesh": mesh, "recurrent": recurrent,
+                   "mesh": mesh, "recurrent": recurrent, "mellum2": mellum2,
                    "examples": dict(examples, wall_s=examples_s),
                    "launches": {"token_path": launches_tok, "slice_a": launches_a,
                                 "slice_b": launches_b, "autotune": launches_tune,
                                 "fleet_and_checkpoints": launches_8, "zoo": launches_zoo,
                                 "training": launches_train, "mesh": launches_mesh,
-                                "recurrent": launches_rec, "examples": launches_ex},
+                                "recurrent": launches_rec, "examples": launches_ex,
+                                "mellum2": launches_mel},
                    "kernels": kernels}, f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(card)

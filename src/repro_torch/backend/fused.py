@@ -19,6 +19,10 @@
   (``Compiler._fold_lut_epilogues``).  A uint8 table whose output only
   ``x_uint8`` matmuls read is stored shifted (``u - 128`` as int8), and
   those readers launch no shift.
+* ``qmoe`` — the routed-expert region (:mod:`repro_torch.core.moe`).
+  ``ref`` runs the plain version, ``cuda`` the five kernels of
+  :mod:`repro_torch.kernels.qmoe`, both on the weights the template laid
+  out; only the chosen experts of each token are computed.
 * ``qlinear_conv2d`` — the fused int8 convolution.  ``ref`` runs the plain
   oracle (an exact float64 ``F.conv2d``) on unpadded parameters; ``cuda``
   runs im2col and then the qmatmul kernel with its epilogue, on the
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 from ..kernels import ops as kops
 from ..kernels import qattention as _qatt
+from ..kernels import qmoe as _qmoe
 from ..kernels import ref as _ref
 from .generic import TORCH_DTYPES
 from .registry import register
@@ -150,3 +155,18 @@ def _qlinear_conv2d_cuda(step, args):
         args[0], w2, b2, qs2, qsh2, p["shape"],
         out_dtype=TORCH_DTYPES[p["out_dtype"]], relu=p["relu"], two_mul=p["two_mul"],
     )]
+
+
+def _qmoe_step(step, args, run):
+    wr, gu, wd, lut, silu = step.consts
+    return [run(args[0], wr, gu, wd, lut, silu, _qmoe.MoEScalars(**step.params["moe"]))]
+
+
+@register("qmoe", backend="ref")
+def _qmoe_ref(step, args):
+    return _qmoe_step(step, args, _qmoe.qmoe_plain)
+
+
+@register("qmoe", backend="cuda")
+def _qmoe_cuda(step, args):
+    return _qmoe_step(step, args, _qmoe.qmoe)

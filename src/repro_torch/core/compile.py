@@ -41,6 +41,7 @@ from ..backend.graph import executor_for
 from ..backend.plan import ExecutionPlan, PlanCache, bindings_key, resolve_bucketing
 from ..backend.registry import lookup
 from ..kernels import ops as kops
+from ..kernels import qmoe as _kqmoe
 from ..kernels.qact_lut import build_lut
 from ..obs import trace as _trace
 from ..obs.metrics import MetricsRegistry
@@ -56,6 +57,7 @@ from ..passes.analysis import (
 )
 from ..passes.rewrite import Match, OpSpec, Pattern, match_chain, ql_params
 from . import runtime
+from .moe import qmoe_exempt_nodes, qmoe_regions
 from .pqir import Model, Node
 
 # ---------------------------------------------------------------------------
@@ -695,6 +697,26 @@ def _build_qattention(compiler: "Compiler", m: dict) -> Optional[StepDraft]:
     )
 
 
+def _build_qmoe(compiler: "Compiler", m: dict) -> StepDraft:
+    """Lower a matched routed-expert region (:mod:`repro_torch.core.moe`)
+    onto one ``qmoe`` step: the weights laid out once on the device
+    (:func:`repro_torch.kernels.qmoe.prepare`), the exp and SiLU tables as
+    the last two consts, the scalars in ``params["moe"]``.  The step reads
+    the token count from its input, so it needs no per-bucket binding."""
+    wr, gu, wd = _kqmoe.prepare(*(_dev(compiler, m[k]) for k in ("router", "gate", "up", "down")))
+    moe = {
+        "top_k": m["top_k"], "router_scale": m["router_scale"], "lut_scale": m["lut_scale"],
+        "p_scale": m["p_scale"], "gate": tuple(m["gate_scales"]), "up": tuple(m["up_scales"]),
+        "down": tuple(m["down_scales"]), "h_scale": m["h_scale"], "out_rescale": m["out_rescale"],
+    }
+    return StepDraft(
+        "qmoe", [tensor_arg(m["x"])], [m["out"]],
+        params={"moe": moe},
+        consts=(wr, gu, wd, _dev(compiler, m["exp_lut"]), _dev(compiler, m["silu"])),
+        kind="fused_qmoe", name=m["anchor"].name,
+    )
+
+
 class Compiler:
     def __init__(
         self,
@@ -785,7 +807,7 @@ class Compiler:
             # over keys whose padded LUT weight is exactly 0 — see
             # qattention_exempt_nodes), which the per-op proof cannot see.
             implicit = implicit_batch_graph(self.graph)
-            exempt = qattention_exempt_nodes(self.analysis)
+            exempt = qattention_exempt_nodes(self.analysis) | qmoe_exempt_nodes(self.analysis)
             for axis in self.dynamic_axes:
                 problems = axis_mixing_nodes(
                     self.analysis, axis, implicit=implicit, exempt=exempt
@@ -803,6 +825,7 @@ class Compiler:
             "fused_lut": 0,
             "lut_epilogues": 0,
             "fused_qattention": 0,
+            "fused_qmoe": 0,
             "generic": 0,
             "folded": self.pass_report.total("folded"),
             "eliminated": self.pass_report.total("eliminated"),
@@ -821,6 +844,9 @@ class Compiler:
         attn_emit, attn_skip = ({}, set())
         if self.fuse:
             attn_emit, attn_skip = self._qattention_regions()
+            moe_emit, moe_skip = self._qmoe_regions()
+            attn_emit.update(moe_emit)
+            attn_skip.update(moe_skip)
         with _trace.span("compile.fuse", nodes=len(order)) as fuse_span:
             for node in order:
                 if id(node) in consumed or id(node) in attn_skip:
@@ -938,6 +964,20 @@ class Compiler:
                 "qattention", node.name,
                 tuple(n.name for n in qm["nodes"]), qm["out"],
             )
+        return emit, skip
+
+    def _qmoe_regions(self):
+        """Every routed-expert region, matched up front like the attention
+        regions: ``(emit, skip)`` keyed by the region's sink (its last
+        QuantizeLinear) and its other members."""
+        emit: Dict[int, StepDraft] = {}
+        skip: set = set()
+        for m in qmoe_regions(self.analysis):
+            sink = [n for n in m["nodes"] if m["out"] in n.outputs][0]
+            emit[id(sink)] = _build_qmoe(self, m)
+            skip.update(id(n) for n in m["nodes"] if n is not sink)
+            self.provenance.add_fusion("qmoe", m["anchor"].name,
+                                       tuple(n.name for n in m["nodes"]), m["out"])
         return emit, skip
 
     def _fused_draft(self, node: Node, consumed: set) -> Optional[StepDraft]:

@@ -4,6 +4,7 @@ plain PyTorch versions.
 qmatmul     — fused int8 / packed-int4 matmul + bias + §3.1 rescale + requant
               [+ an activation table in the epilogue]
 qattention  — fused int8 attention region (scores, LUT softmax, context)
+qmoe        — the routed-expert step (router, top-k, SwiGLU experts, combine)
 qact_lut    — the exact 256-entry activation table: builder and the gather
               kernel for tables the plan does not fold into a matmul
 ops         — plan-time templates, per-bucket binding, the planned matmul,
@@ -17,15 +18,15 @@ its first launch.
 """
 from typing import Dict
 
-from . import ops, pack, qact_lut, qattention, qmatmul, ref  # noqa: F401
+from . import ops, pack, qact_lut, qattention, qmatmul, qmoe, ref  # noqa: F401
 
 
-_COUNTERS = (qmatmul.LAUNCHES, qattention.LAUNCHES, qact_lut.LAUNCHES)
+_COUNTERS = (qmatmul.LAUNCHES, qattention.LAUNCHES, qact_lut.LAUNCHES, qmoe.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`, by name."""
-    return {**qmatmul.LAUNCHES, **qattention.LAUNCHES, **qact_lut.LAUNCHES}
+    return {**qmatmul.LAUNCHES, **qattention.LAUNCHES, **qact_lut.LAUNCHES, **qmoe.LAUNCHES}
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:

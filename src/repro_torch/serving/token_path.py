@@ -39,6 +39,7 @@ from ..core.compile import (
     host_to_device_async,
     resolve_device,
 )
+from ..core.moe import emit_qmoe, make_moe_params
 from ..core.patterns import ATTN_P_SCALE, emit_qattention, emit_round_clip, fc_layer
 from ..core.quant import QuantizedLinearParams, Rescale, RescaleVector, quantize_linear_layer
 
@@ -62,7 +63,22 @@ class TokenPathConfig:
     are then plain saturating code-domain adds, and the attention rescale
     collapses to ``1 / p_scale``.  ``bits_*`` select the weight lane per
     projection (4 ⇒ QONNX-style ``weight_bits`` attribute, packed-int4 kernel
-    on the cuda backend), so one model mixes w4 and w8 layers."""
+    on the cuda backend), so one model mixes w4 and w8 layers.
+
+    The fields after ``bits_down`` widen the block; their defaults emit the
+    block above, graph for graph:
+
+    * ``n_kv_heads`` (0: one per query head) — grouped-query attention: the
+      ``n_heads / n_kv_heads`` query heads of a group read their KV head's
+      slice; ``head_dim`` (0: ``d_model / n_heads``) — the qkv projection is
+      ``d_model → n_heads·head_dim + 2·n_kv_heads·head_dim``, o
+      ``n_heads·head_dim → d_model``;
+    * ``layer_kinds`` (empty: all ``"full"``) — a ``"window"`` layer's query
+      at position p attends positions p − window + 1 … p; its decode state
+      is a ring of ``window`` rows written at ``p % window``;
+    * ``n_experts`` (0: the dense ReLU MLP) — a routed-expert layer
+      (:mod:`repro_torch.core.moe`) of ``n_experts`` SwiGLU experts of width
+      ``d_expert``, ``top_k`` a token, in place of every MLP."""
 
     vocab: int = 128
     d_model: int = 64
@@ -75,10 +91,48 @@ class TokenPathConfig:
     bits_o: int = 8
     bits_up: int = 8
     bits_down: int = 4
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    layer_kinds: Tuple[str, ...] = ()
+    window: int = 0
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+
+    def __post_init__(self) -> None:
+        kinds = self.layer_kinds
+        if kinds and (len(kinds) != self.n_layers or set(kinds) - {"full", "window"}):
+            raise ValueError(f"layer_kinds {kinds} must give 'full' or 'window' for each of "
+                             f"{self.n_layers} layers")
+        if "window" in kinds and (self.window < 1 or "full" not in kinds):
+            raise ValueError("window layers need window >= 1 and at least one full layer")
+        if self.n_heads % self.kv_heads:
+            raise ValueError(f"{self.n_heads} query heads do not group over {self.kv_heads} KV heads")
+        if self.n_experts and not 1 <= self.top_k <= self.n_experts:
+            raise ValueError(f"top_k {self.top_k} of {self.n_experts} experts")
 
     @property
     def d_head(self) -> int:
-        return self.d_model // self.n_heads
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def q_width(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_width(self) -> int:
+        return self.kv_heads * self.d_head
+
+    def kind(self, layer: int) -> str:
+        return self.layer_kinds[layer] if self.layer_kinds else "full"
+
+    @property
+    def has_window(self) -> bool:
+        return "window" in self.layer_kinds
 
     @property
     def qk_scale(self) -> float:
@@ -95,7 +149,8 @@ class TokenPathParams:
     """Pre-quantized parameters of the token path (what the artifact embeds)."""
 
     embedding: np.ndarray  # (vocab, d_model) int8 codes; row 0 all-zero
-    layers: List[Dict[str, QuantizedLinearParams]]
+    #: per layer: ``qkv``, ``o`` and ``up``, ``down`` (or ``moe``: MoEParams)
+    layers: List[Dict[str, object]]
     lm_head: np.ndarray  # (d_model, vocab) int8
     lm_scale: float
 
@@ -117,14 +172,17 @@ def make_token_params(cfg: TokenPathConfig, seed: int = 0) -> TokenPathParams:
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append(
-            {
-                "qkv": lin(cfg.d_model, 3 * cfg.d_model, cfg.bits_qkv),
-                "o": lin(cfg.d_model, cfg.d_model, cfg.bits_o),
-                "up": lin(cfg.d_model, cfg.d_ff, cfg.bits_up),
-                "down": lin(cfg.d_ff, cfg.d_model, cfg.bits_down),
-            }
-        )
+        layer = {
+            "qkv": lin(cfg.d_model, cfg.q_width + 2 * cfg.kv_width, cfg.bits_qkv),
+            "o": lin(cfg.q_width, cfg.d_model, cfg.bits_o),
+        }
+        if cfg.n_experts:
+            layer["moe"] = make_moe_params(rng, cfg.d_model, cfg.d_expert, cfg.n_experts,
+                                           cfg.top_k, s)
+        else:
+            layer["up"] = lin(cfg.d_model, cfg.d_ff, cfg.bits_up)
+            layer["down"] = lin(cfg.d_ff, cfg.d_model, cfg.bits_down)
+        layers.append(layer)
     head = rng.integers(-64, 65, (cfg.d_model, cfg.vocab)).astype(np.int8)
     return TokenPathParams(emb, layers, head, cfg.lm_scale)
 
@@ -170,13 +228,18 @@ def _attention(
     mask: str,
     prefix: str,
 ) -> str:
-    """Per-head fused attention regions + head concat over the feature axis."""
+    """Per-head fused attention regions + head concat over the feature axis.
+    Query head h reads KV head ``h // (n_heads / kv_heads)``: each KV head's
+    slices are emitted once, before the first query head of its group."""
     dh = cfg.d_head
+    group = cfg.n_heads // cfg.kv_heads
     heads = []
     for h in range(cfg.n_heads):
         qh = _slice_feat(gb, q_full, h * dh, (h + 1) * dh, f"{prefix}_q{h}")
-        kh = _slice_feat(gb, k_full, h * dh, (h + 1) * dh, f"{prefix}_k{h}")
-        vh = _slice_feat(gb, v_full, h * dh, (h + 1) * dh, f"{prefix}_v{h}")
+        if h % group == 0:
+            g = h // group
+            kh = _slice_feat(gb, k_full, g * dh, (g + 1) * dh, f"{prefix}_k{g}")
+            vh = _slice_feat(gb, v_full, g * dh, (g + 1) * dh, f"{prefix}_v{g}")
         heads.append(
             emit_qattention(
                 gb, qh, kh, vh, mask, f"{prefix}_att{h}",
@@ -188,7 +251,9 @@ def _attention(
     return gb.op("Concat", heads, out_hint=f"{prefix}_ctx", axis=2)
 
 
-def _mlp(gb, x: str, p: Dict[str, QuantizedLinearParams], prefix: str) -> str:
+def _mlp(gb, x: str, p: Dict[str, object], prefix: str) -> str:
+    if "moe" in p:
+        return emit_qmoe(gb, x, p["moe"], f"{prefix}_moe")
     up = fc_layer(gb, x, p["up"], f"{prefix}_up", activation="Relu")
     return fc_layer(gb, up, p["down"], f"{prefix}_down")
 
@@ -206,23 +271,28 @@ def build_prefill_model(cfg: TokenPathConfig, params: TokenPathParams) -> pqir.M
     """The two-axis prefill artifact: logits + per-layer K/V cache rows.
 
     Outputs: ``logits ("N","S",V) f32`` first, then the K and V cache rows
-    ``("N","S",D) int8`` per layer, in the same (k, v) × layer order as the
-    decode graph's declared states — :class:`CompiledTokenPath` zips the two,
-    so a prefilled cache feeds decode directly."""
-    D, V = cfg.d_model, cfg.vocab
+    ``("N","S",KW) int8`` per layer (KW = ``kv_width``), in the same (k, v) ×
+    layer order as the decode graph's declared states — :class:`CompiledTokenPath`
+    zips the two (a window layer's rows go into ring order there), so a
+    prefilled cache feeds decode directly.  Window layers read the banded
+    ``wmask ("N","S","S")`` in place of the causal ``mask``."""
+    V, QW, KW = cfg.vocab, cfg.q_width, cfg.kv_width
     gb = pqir.GraphBuilder("token_prefill")
     gb.add_input("tokens", "int32", ("N", "S"))
     gb.add_input("mask", "float32", ("N", "S", "S"))
+    if cfg.has_window:
+        gb.add_input("wmask", "float32", ("N", "S", "S"))
     table = gb.add_initializer("embedding_q", params.embedding)
     x = gb.op("Gather", [table, "tokens"], out_hint="emb", axis=0)
     kv_outs: List[Tuple[str, str]] = []
     for l, p in enumerate(params.layers):
         pfx = f"l{l}"
         qkv = fc_layer(gb, x, p["qkv"], f"{pfx}_qkv")
-        qf = _slice_feat(gb, qkv, 0, D, f"{pfx}_qs")
-        kf = _slice_feat(gb, qkv, D, 2 * D, f"{pfx}_ks")
-        vf = _slice_feat(gb, qkv, 2 * D, 3 * D, f"{pfx}_vs")
-        ctx = _attention(gb, cfg, qf, kf, vf, "mask", pfx)
+        qf = _slice_feat(gb, qkv, 0, QW, f"{pfx}_qs")
+        kf = _slice_feat(gb, qkv, QW, QW + KW, f"{pfx}_ks")
+        vf = _slice_feat(gb, qkv, QW + KW, QW + 2 * KW, f"{pfx}_vs")
+        mask = "wmask" if cfg.kind(l) == "window" else "mask"
+        ctx = _attention(gb, cfg, qf, kf, vf, mask, pfx)
         o = fc_layer(gb, ctx, p["o"], f"{pfx}_o")
         x1 = _residual(gb, x, o, f"{pfx}_res1")
         x = _residual(gb, x1, _mlp(gb, x1, p, pfx), f"{pfx}_res2")
@@ -232,8 +302,8 @@ def build_prefill_model(cfg: TokenPathConfig, params: TokenPathParams) -> pqir.M
     for l, (kf, vf) in enumerate(kv_outs):
         # renamed via identity-free aliasing: the Slice outputs *are* the
         # cache rows; expose them under the decode state-input names
-        gb.add_output(kf, "int8", ("N", "S", D))
-        gb.add_output(vf, "int8", ("N", "S", D))
+        gb.add_output(kf, "int8", ("N", "S", KW))
+        gb.add_output(vf, "int8", ("N", "S", KW))
     return gb.build(opset=17)
 
 
@@ -242,29 +312,38 @@ def build_decode_model(cfg: TokenPathConfig, params: TokenPathParams) -> pqir.Mo
 
     Inputs: ``tokens ("N",1)``, ``onehot ("N","S",1) int8`` (scatter position
     of the new K/V row), ``mask ("N",1,"S")`` (validity: positions ≤ current),
-    plus per-layer state inputs ``k_cache_l`` / ``v_cache_l ("N","S",D)``.
-    Each state's updated tensor is both a graph output and a declared
-    :class:`~repro_torch.core.pqir.StateSpec`, so the lowering pins its buffers."""
-    D, V = cfg.d_model, cfg.vocab
+    with window layers ``ring_onehot ("N",W,1)`` and ``ring_mask ("N",1,W)``
+    (W = ``window``), plus per-layer state inputs ``k_cache_l`` /
+    ``v_cache_l``: ``("N","S",KW)`` for a full layer, ``("N",W,KW)`` rings for
+    a window layer.  Each state's updated tensor is both a graph output and
+    a declared :class:`~repro_torch.core.pqir.StateSpec`, so the lowering pins
+    its buffers."""
+    V, QW, KW = cfg.vocab, cfg.q_width, cfg.kv_width
     gb = pqir.GraphBuilder("token_decode")
     gb.add_input("tokens", "int32", ("N", 1))
     gb.add_input("onehot", "int8", ("N", "S", 1))
     gb.add_input("mask", "float32", ("N", 1, "S"))
+    if cfg.has_window:
+        gb.add_input("ring_onehot", "int8", ("N", cfg.window, 1))
+        gb.add_input("ring_mask", "float32", ("N", 1, cfg.window))
+    rows = {"full": "S", "window": cfg.window}
     for l in range(cfg.n_layers):
-        gb.add_input(f"k_cache_{l}", "int8", ("N", "S", D))
-        gb.add_input(f"v_cache_{l}", "int8", ("N", "S", D))
+        gb.add_input(f"k_cache_{l}", "int8", ("N", rows[cfg.kind(l)], KW))
+        gb.add_input(f"v_cache_{l}", "int8", ("N", rows[cfg.kind(l)], KW))
     table = gb.add_initializer("embedding_q", params.embedding)
     x = gb.op("Gather", [table, "tokens"], out_hint="emb", axis=0)
     updates: List[Tuple[str, str]] = []
     for l, p in enumerate(params.layers):
         pfx = f"l{l}"
         qkv = fc_layer(gb, x, p["qkv"], f"{pfx}_qkv")
-        qf = _slice_feat(gb, qkv, 0, D, f"{pfx}_qs")
-        kn = _slice_feat(gb, qkv, D, 2 * D, f"{pfx}_ks")
-        vn = _slice_feat(gb, qkv, 2 * D, 3 * D, f"{pfx}_vs")
-        k_upd = _kv_update(gb, f"k_cache_{l}", kn, "onehot", f"{pfx}_kupd")
-        v_upd = _kv_update(gb, f"v_cache_{l}", vn, "onehot", f"{pfx}_vupd")
-        ctx = _attention(gb, cfg, qf, k_upd, v_upd, "mask", pfx)
+        qf = _slice_feat(gb, qkv, 0, QW, f"{pfx}_qs")
+        kn = _slice_feat(gb, qkv, QW, QW + KW, f"{pfx}_ks")
+        vn = _slice_feat(gb, qkv, QW + KW, QW + 2 * KW, f"{pfx}_vs")
+        ring = cfg.kind(l) == "window"
+        onehot, mask = ("ring_onehot", "ring_mask") if ring else ("onehot", "mask")
+        k_upd = _kv_update(gb, f"k_cache_{l}", kn, onehot, f"{pfx}_kupd")
+        v_upd = _kv_update(gb, f"v_cache_{l}", vn, onehot, f"{pfx}_vupd")
+        ctx = _attention(gb, cfg, qf, k_upd, v_upd, mask, pfx)
         o = fc_layer(gb, ctx, p["o"], f"{pfx}_o")
         x1 = _residual(gb, x, o, f"{pfx}_res1")
         x = _residual(gb, x1, _mlp(gb, x1, p, pfx), f"{pfx}_res2")
@@ -272,8 +351,8 @@ def build_decode_model(cfg: TokenPathConfig, params: TokenPathParams) -> pqir.Mo
     logits = _lm_head(gb, cfg, params, x)
     gb.add_output(logits, "float32", ("N", 1, V))
     for l, (k_upd, v_upd) in enumerate(updates):
-        gb.add_output(k_upd, "int8", ("N", "S", D))
-        gb.add_output(v_upd, "int8", ("N", "S", D))
+        gb.add_output(k_upd, "int8", ("N", rows[cfg.kind(l)], KW))
+        gb.add_output(v_upd, "int8", ("N", rows[cfg.kind(l)], KW))
         gb.add_state(f"kv{l}_k", input=f"k_cache_{l}", output=k_upd)
         gb.add_state(f"kv{l}_v", input=f"v_cache_{l}", output=v_upd)
     return gb.build(opset=17)
@@ -318,6 +397,17 @@ def params_from_numpy(tree: Mapping) -> TokenPathParams:
         lm_head=np.asarray(tree["lm_head"], np.int8),
         lm_scale=float(tree["lm_scale"]),
     )
+
+
+def ring_order(rows: torch.Tensor, lens: torch.Tensor, window: int) -> torch.Tensor:
+    """A window layer's prefilled rows ``(N, S, KW)`` as its decode ring
+    ``(N, window, KW)``: ring row r holds the latest position p < ``lens``
+    with ``p % window == r``, and zeros where there is none."""
+    r = torch.arange(window, device=rows.device)
+    last = lens[:, None] - 1
+    p = r[None, :] + window * torch.div(last - r[None, :], window, rounding_mode="floor")
+    idx = p.clamp(min=0)[:, :, None].expand(-1, -1, rows.shape[2])
+    return rows.gather(1, idx) * (p >= 0)[:, :, None].to(rows.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -371,13 +461,33 @@ class CompiledTokenPath:
         # prefill outputs [1:] are the per-layer (k, v) rows in state order
         pre_kv = [t.name for t in self.prefill_model.graph.outputs[1:]]
         self._prefill_kv = {s.input: n for s, n in zip(self.state_specs, pre_kv)}
+        kinds = {f"{kv}_cache_{l}": self.cfg.kind(l) for l in range(self.cfg.n_layers) for kv in "kv"}
+        #: the state inputs of window layers (rings), and the first full one
+        self.ring_inputs = frozenset(n for n, k in kinds.items() if k == "window")
+        self._full_input = next(s.input for s in self.state_specs if kinds[s.input] == "full")
 
     # -- direct run API -------------------------------------------------------
-    def prefill(self, tokens, mask):
-        """Returns (logits (N,S,V) f32, {state-input name: (N,S,D) int8}),
-        tensors on the device."""
-        outs = self.prefill_cm.run({"tokens": tokens, "mask": mask})
+    def prefill(self, tokens, mask, wmask=None, plen=None):
+        """Returns (logits (N,S,V) f32, {state-input name: int8 rows}),
+        tensors on the device: ``(N,S,KW)`` for a full layer, and for a
+        window layer its ring ``(N,W,KW)`` as decode reads it (row
+        ``p % W`` holds position p of the last ``min(plen, W)``, the rest
+        zero).  Window layers need the banded ``wmask``; ``plen`` (an int
+        or one per row) is each row's prompt length, S when None."""
+        feeds = {"tokens": tokens, "mask": mask}
+        if self.ring_inputs:
+            if wmask is None:
+                raise ValueError("a model with window layers prefills with a banded wmask")
+            feeds["wmask"] = wmask
+        outs = self.prefill_cm.run(feeds)
         cache = {inp: outs[name] for inp, name in self._prefill_kv.items()}
+        if self.ring_inputs:
+            rows = next(iter(cache.values()))
+            n, s = rows.shape[:2]
+            lens = torch.as_tensor(np.broadcast_to(np.asarray(s if plen is None else plen), (n,)).copy(),
+                                   dtype=torch.int64, device=rows.device)
+            for name in self.ring_inputs:
+                cache[name] = ring_order(cache[name], lens, self.cfg.window)
         return outs[self._logits_prefill], cache
 
     def decode(self, tokens, onehot, mask, cache: Dict[str, torch.Tensor]):
@@ -418,25 +528,34 @@ class CompiledTokenPath:
 
     def decode_feeds(self, tokens, pos, cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The decode plan's feeds for one step, on the device: the tokens,
-        the position onehot and causal mask built from ``pos``, and the
-        cache.  The tokens and positions cross from the host without a wait
-        (through page-locked memory on a CUDA device)."""
+        the position onehot and causal mask built from ``pos`` (and, with
+        window layers, the ring's: slot ``pos % W`` written, slots ``<= pos``
+        valid), and the cache.  The tokens and positions cross from the host
+        without a wait (through page-locked memory on a CUDA device)."""
         toks = host_to_device_async(np.asarray(tokens), self.device, torch.int32)
         pos_t = host_to_device_async(np.asarray(pos), self.device, torch.int64)
-        s = int(next(iter(cache.values())).shape[1])
+        s = int(cache[self._full_input].shape[1])
         ar = torch.arange(s, device=self.device)
         feeds = {
             "tokens": toks,
             "onehot": (ar[None, :, None] == pos_t[:, None, None]).to(torch.int8),
             "mask": (ar[None, None, :] <= pos_t[:, None, None]).to(torch.float32),
         }
+        if self.ring_inputs:
+            w = self.cfg.window
+            ring = torch.arange(w, device=self.device)
+            feeds["ring_onehot"] = (ring[None, :, None] == (pos_t % w)[:, None, None]).to(torch.int8)
+            feeds["ring_mask"] = (ring[None, None, :] <= pos_t[:, None, None]).to(torch.float32)
         feeds.update(cache)
         return feeds
 
     def init_cache(self, n: int, s: int) -> Dict[str, torch.Tensor]:
-        D = self.cfg.d_model
+        """Zero caches for ``n`` slots: ``(n, s, KW)`` full layers and
+        ``(n, W, KW)`` rings."""
+        kw = self.cfg.kv_width
         return {
-            spec.input: torch.zeros((n, s, D), dtype=torch.int8, device=self.device)
+            spec.input: torch.zeros((n, self.cfg.window if spec.input in self.ring_inputs else s, kw),
+                                    dtype=torch.int8, device=self.device)
             for spec in self.state_specs
         }
 
@@ -466,8 +585,13 @@ class CompiledTokenAdapter:
 
     def prefill(self, padded: np.ndarray, plen: int, max_len: int):
         bucket = padded.shape[1]
-        mask = torch.tril(torch.ones((bucket, bucket), dtype=torch.float32, device=self.tp.device))
-        logits, cache = self.tp.prefill(padded, mask[None])
+        ones = torch.ones((bucket, bucket), dtype=torch.float32, device=self.tp.device)
+        mask = torch.tril(ones)
+        if not self.tp.ring_inputs:
+            logits, cache = self.tp.prefill(padded, mask[None])
+        else:
+            wmask = mask * torch.triu(ones, diagonal=1 - self.cfg.window)
+            logits, cache = self.tp.prefill(padded, mask[None], wmask[None], plen=plen)
         return logits[0, plen - 1], cache
 
     def scatter(self, cache, slot: int, pcache):

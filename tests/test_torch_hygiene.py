@@ -75,6 +75,23 @@ def test_source_imports_nothing_of_jax_or_repro(path):
     assert not bad, f"{path} imports {bad}"
 
 
+#: The plain references a compiled model is held to: plain torch and numpy.
+REFERENCES = [ROOT / "portbench" / "reference" / "tokpath-mellum2.py"]
+
+
+@pytest.mark.parametrize("path", REFERENCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_the_plain_references_import_no_jax_no_repro_and_no_port_kernel(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path} imports relatively"
+            tops.add(node.module.split(".")[0])
+    assert tops <= {"__future__", "math", "typing", "numpy", "torch"}, tops
+
+
 SLICE_MODULES = ["core/calibrate.py", "core/toolchain.py", "core/export.py",
                  "kernels/qact_lut.py", "kernels/ops.py", "serving/compiled.py",
                  "backend/cost.py", "backend/autotune.py", "backend/artifact.py",
