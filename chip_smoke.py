@@ -5,9 +5,9 @@ Drives the port's main path on one CUDA card and fails loudly:
 
 1. environment — the card's name and power limit, torch and CUDA versions;
 2. build — ``nvcc`` compiles ``kernels/csrc/*.cu`` (qmatmul, qattention,
-   qact_lut, qmoe) for sm_90a, one process per source, all at once;
+   qact_lut, qmoe, kv_write) for sm_90a, one process per source, all at once;
 3. kernels — each hand-written kernel (qmatmul, qmatmul_packed, qattention,
-   qact_lut, qmoe) held bit-exact against its plain PyTorch version at the shapes
+   qact_lut, qmoe, kv_write) held bit-exact against its plain PyTorch version at the shapes
    its paths give it (the token path; slice A's three layers, slice B's five
    conv GEMMs and its FC head at their largest buckets; K off the 16-byte
    copies; the MLP's LUT layers), then timed with CUDA events beside its
@@ -26,6 +26,10 @@ Drives the port's main path on one CUDA card and fails loudly:
    2304, top-8) at the benchmark's decode step (64 tokens) and its largest
    prefill bucket (4,608 tokens), timed beside its plain version and its
    bound (the router and the weights of the experts its rows can reach);
+   the decode step's KV update (kv_write) on the decode cells' caches —
+   MiniCPM-2B's (16, 4,096, 2,304), Mellum2's ring (64, 1,024, 512) and
+   full cache (64, 7,680, 512) — over five kinds of onehot, against its
+   plain version and the four int8 ops it replaces, timed beside both;
    and every qmatmul kernel instance's static shared memory and registers
    as CUDA reports them;
 4. token path — the compiled token path at Qwen3-1.7B widths (vocab 151936,
@@ -287,6 +291,15 @@ DECODE_M = 4  # rows of a decode step at 4 slots
 #: row tile 64).
 QMOE_D, QMOE_F, QMOE_E, QMOE_K = 2304, 896, 64, 8
 QMOE_TOKENS = (64, 4608)
+#: The caches the decode cells' kv_write steps update, (N, R, W): MiniCPM-2B's
+#: (tokpath-decode: 16 slots, 4,096 rows, 36 heads of 64), Mellum2's
+#: 1,024-row ring and its full cache (mellum2-decode64: 64 slots, 4 KV heads
+#: of 128), whose rows span two of a block's 4,096-row chunks.
+KV_WRITE_SHAPES = [("minicpm2b-cache", 16, 4096, 2304), ("mellum2-ring", 64, 1024, 512),
+                   ("mellum2-cache", 64, 7680, 512)]
+#: The onehots the CPU tests hold the update to (tests/test_torch_kv_write.py);
+#: the path's own, one 1 a slot, is timed.
+KV_WRITE_ONEHOTS = ("one-a-row", "padded-slot", "two-in-a-row", "minus-one", "max")
 #: Phase 8's fleet FFN: d_model and d_ff of src/repro/configs/qwen3_1_7b.py;
 #: batches of FLEET_MAX_BATCH requests padded to each seq bucket.
 FLEET_D, FLEET_FF = 2048, 6144
@@ -651,6 +664,69 @@ def _check_qmoe(rng, flush, rows, worst, operands, tokens):
         f"by {b_by}) [bm={bm}, {kqmoe.LAUNCHES_PER_CALL} launches]")
 
 
+def _kv_onehot(rng, kind, n, r):
+    """An int8 (n, r, 1) onehot of ``kind`` (``KV_WRITE_ONEHOTS``): one 1 a
+    slot at a random row; slot 1 all zero (a padded slot); slot 0 with a
+    second 1; or the slots' bytes -1 or 127 and slot 2 a second row at 1."""
+    import numpy as np
+
+    h = np.zeros((n, r, 1), np.int8)
+    pos = rng.integers(0, r, n)
+    h[np.arange(n), pos] = 1
+    if kind == "padded-slot":
+        h[1] = 0
+    elif kind == "two-in-a-row":
+        h[0, (pos[0] + 1) % r] = 1
+    elif kind in ("minus-one", "max"):
+        h[np.arange(n), pos] = -1 if kind == "minus-one" else 127
+        h[2, (pos[2] + 3) % r] = 1
+    return h
+
+
+def _check_kv_write(rng, device, flush, rows, worst, tag, n, r, w):
+    """kv_write == kv_write_plain == the four codified int8 ops (tolerance
+    0) on a cache of (n, r, w), its new rows a (n, 1, w) view of a qkv-like
+    (n, 1, 3w) buffer as the plan slices them, over every onehot kind; the
+    path's onehot timed against the plain version and the four ops, beside
+    the bound of the onehot's n·r bytes and three passes over the n·w bytes
+    of the rows written (old row and new row read, row written)."""
+    import torch
+
+    from repro_torch.kernels import kv_write as kvw
+
+    s = torch.from_numpy(_int8(rng, (n, r, w))).to(device)
+    x = torch.from_numpy(_int8(rng, (n, 1, 3 * w))).to(device)[:, :, w:2 * w]
+    for kind in KV_WRITE_ONEHOTS:
+        h = torch.from_numpy(_kv_onehot(rng, kind, n, r)).to(device)
+        before = kvw.LAUNCHES["kv_write"]
+        got = kvw.kv_write(s.clone(), h, x)
+        if kvw.LAUNCHES["kv_write"] - before != 1:
+            raise AssertionError(f"kv_write counted {kvw.LAUNCHES['kv_write'] - before} launches a call")
+        want = kvw.kv_write_plain(s.clone(), h, x)
+        four = s * (1 - h) + x * h
+        err = max(_max_err(got, want), _max_err(four, want))
+        worst["kv_write"] = max(worst["kv_write"], err)
+        written = int((h != 0).sum())
+        moved = int((want != s).any(dim=2).sum())
+        if err or not 0 < moved <= written:
+            raise AssertionError(f"kv_write {tag} {kind}: max |kernel - plain|, |four ops - plain| = {err}; "
+                                 f"{moved} rows changed for {written} non-zero onehot bytes")
+        if kind != KV_WRITE_ONEHOTS[0]:
+            continue
+        b_ms, b_by = bound_ms(n * r + 3 * written * w, 3 * written * w)
+        buf, pbuf = s.clone(), s.clone()
+        ms = time_ms(lambda: kvw.kv_write(buf, h, x), flush)
+        pms = time_ms(lambda: kvw.kv_write_plain(pbuf, h, x), flush)
+        fms = time_ms(lambda: s * (1 - h) + x * h, flush)
+        shape = f"N={n},R={r},W={w},{tag}"
+        rows.append(dict(kernel="kv_write", shape=shape, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err,
+                         route={"four_ops_ms": fms, "row_chunks": -(-r // 4096)}))
+        log(f"  kv_write        {shape}: exact over {len(KV_WRITE_ONEHOTS)} onehot kinds, {ms:.4f} ms "
+            f"(plain {pms:.4f} ms, the four int8 ops {fms:.4f} ms, bound {b_ms:.3g} ms by {b_by})")
+        del buf, pbuf
+
+
 def check_kernels(device, flush, rows):
     import numpy as np
     import torch
@@ -658,7 +734,7 @@ def check_kernels(device, flush, rows):
     from repro_torch.kernels import qattention as qatt
 
     rng = np.random.default_rng(0)
-    worst = {"qmatmul": 0, "qmatmul_packed": 0, "qattention": 0, "qact_lut": 0, "qmoe": 0}
+    worst = {"qmatmul": 0, "qmatmul_packed": 0, "qattention": 0, "qact_lut": 0, "qmoe": 0, "kv_write": 0}
     for k, n, bits, relu in MATMUL_SHAPES:
         for m in MATMUL_M:
             _check_matmul(rng, device, flush, rows, worst, m, k, n, bits, relu)
@@ -701,6 +777,8 @@ def check_kernels(device, flush, rows):
     moe_ops = qmoe_operands(device)
     for tokens in QMOE_TOKENS:
         _check_qmoe(rng, flush, rows, worst, moe_ops, tokens)
+    for tag, n, r, w in KV_WRITE_SHAPES:
+        _check_kv_write(rng, device, flush, rows, worst, tag, n, r, w)
     return worst
 
 
@@ -806,6 +884,9 @@ def run_slice(device):
         f"{tps['cuda'].graph_stats()}; ref: {tps['ref'].graph_stats()}")
     if graphs["captures"] or graphs["replays"] < steps or tps["ref"].graph_stats()["replays"]:
         raise AssertionError(f"decode graphs: counted run {graphs}, ref {tps['ref'].graph_stats()}")
+    if launches["kv_write"] != 2 * cfg.n_layers * graphs["replays"]:
+        raise AssertionError(f"kv_write launches {launches['kv_write']}, want K and V of "
+                             f"{cfg.n_layers} layers in each of {graphs['replays']} decode replays")
     profiled, head_copies = profile_decode_step(
         tps["cuda"], dec_toks[0], np.full((n,), plen), n, s_max, cfg.d_head)
     if head_copies:
@@ -3336,7 +3417,7 @@ def run_mellum2(device, card):
     bit.  On ``cuda`` each expert layer is one fused ``qmoe`` step and the
     decode plan replays as one CUDA graph; the counted run (after a warm
     run) launches qmoe exactly 5 times a layer per prefill and per decode
-    step.  Returns the phase's record and the counted run's launches."""
+    step, and kv_write twice a layer (K and V) per decode step.  Returns the phase's record and the counted run's launches."""
     import numpy as np
     import torch
 
@@ -3414,6 +3495,9 @@ def run_mellum2(device, card):
     if launches["qmoe"] != want_moe:
         raise AssertionError(f"qmoe launches {launches['qmoe']}, want {want_moe} "
                              f"({LAUNCHES_PER_CALL} a layer for each of {calls} plan runs)")
+    if launches["kv_write"] != 2 * cfg.n_layers * got["steps"]:
+        raise AssertionError(f"kv_write launches {launches['kv_write']}, want K and V of "
+                             f"{cfg.n_layers} layers in each of {got['steps']} decode steps")
     missing = [k for k in ("qmatmul", "qmatmul_packed", "qattention") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the Mellum2 token path: {missing}")
@@ -3696,12 +3780,15 @@ def main() -> int:
         "qmatmul_packed": summed("qmatmul_packed", {f"M={DECODE_M},K=2048,N=6144,w4", f"M={DECODE_M},K=6144,N=2048,w4"}),
         "qattention": summed("qattention", {"B=4,S=1,T=512,dh=128"}, mult=16),
         "qmoe": summed("qmoe", {f"T={QMOE_TOKENS[0]},D={QMOE_D},F={QMOE_F},E={QMOE_E},k={QMOE_K}"}),
+        "kv_write": summed("kv_write", {"N={},R={},W={},{}".format(*KV_WRITE_SHAPES[0][1:], KV_WRITE_SHAPES[0][0])},
+                           mult=2),
     }
     sources = {
         "qmatmul": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:217"),
         "qmatmul_packed": ("src/repro_torch/kernels/csrc/qmatmul.cu", "src/repro/kernels/qmatmul.py:170"),
         "qattention": ("src/repro_torch/kernels/csrc/qattention.cu", "src/repro/kernels/qattention.py:105"),
         "qmoe": ("src/repro_torch/kernels/csrc/qmoe.cu", None),  # new in the port: no TPU original
+        "kv_write": ("src/repro_torch/kernels/csrc/kv_write.cu", None),  # new in the port: no TPU original
     }
     kernels = []
     for name, (tot, sel) in summaries.items():
@@ -3723,7 +3810,9 @@ def main() -> int:
         "token path's counted run); "
         "ms/plain_ms/bound_ms are per layer per decode step at (N,S)=(4,512) for the matmul "
         "kernels and qattention (16 head launches), per Mellum2 expert layer at the benchmark's "
-        f"decode step ({QMOE_TOKENS[0]} tokens, five launches) for qmoe, and per slice-A forward at batch "
+        f"decode step ({QMOE_TOKENS[0]} tokens, five launches) for qmoe, per layer per decode step of "
+        f"tokpath-decode for kv_write (K and V, two launches on a {KV_WRITE_SHAPES[0][1:]} cache each), "
+        f"and per slice-A forward at batch "
         f"{MLP_MAX_BATCH} for qact_lut (its two LUT layers): its launches are the qmatmul "
         "launches that carried a table, its ms/plain_ms/bound_ms those of slice A's two "
         "matmuls with their tables, and its routes hold the time the tables add (with its "

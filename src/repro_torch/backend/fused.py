@@ -23,6 +23,13 @@
   ``ref`` runs the plain version, ``cuda`` the five kernels of
   :mod:`repro_torch.kernels.qmoe`, both on the weights the template laid
   out; only the chosen experts of each token are computed.
+* ``kv_write`` — the decode step's KV update (``Add(Mul(S, Sub(1, H)),
+  Mul(X, H))`` on a state ``S``): only the rows whose onehot is non-zero
+  are written (:mod:`repro_torch.kernels.kv_write`; ``ref`` its plain
+  version).  The step writes into a copy of ``S``, or, with
+  ``params["in_place"]``, which an executor that owns the state's buffer
+  sets (:func:`repro_torch.backend.graph.writes_states_in_place`), into
+  ``S`` itself, which is then its output.
 * ``qlinear_conv2d`` — the fused int8 convolution.  ``ref`` runs the plain
   oracle (an exact float64 ``F.conv2d``) on unpadded parameters; ``cuda``
   runs im2col and then the qmatmul kernel with its epilogue, on the
@@ -33,12 +40,15 @@ is how the CPU tests exercise the planned path; on a CUDA tensor it launches
 the kernel or raises.
 
 Step contract (see :mod:`repro_torch.backend.plan`): ``args = [x]`` (or
-``[q, k, v, mask]``), parameters in ``step.consts``, static config in
+``[q, k, v, mask]``, or ``[s, h, x]``), parameters in ``step.consts``, static config in
 ``step.params``.  ``params["x_uint8"]`` marks a uint8 activation whose +128
 offset the plan already folded into the bias.
 """
 from __future__ import annotations
 
+import torch
+
+from ..kernels import kv_write as _kvw
 from ..kernels import ops as kops
 from ..kernels import qattention as _qatt
 from ..kernels import qmoe as _qmoe
@@ -170,3 +180,20 @@ def _qmoe_ref(step, args):
 @register("qmoe", backend="cuda")
 def _qmoe_cuda(step, args):
     return _qmoe_step(step, args, _qmoe.qmoe)
+
+
+def _kv_write_step(step, args, run):
+    s, h, x = args
+    if not step.params.get("in_place"):
+        s = s.clone(memory_format=torch.contiguous_format)
+    return [run(s, h, x)]
+
+
+@register("kv_write", backend="ref")
+def _kv_write_ref(step, args):
+    return _kv_write_step(step, args, _kvw.kv_write_plain)
+
+
+@register("kv_write", backend="cuda")
+def _kv_write_cuda(step, args):
+    return _kv_write_step(step, args, _kvw.kv_write)

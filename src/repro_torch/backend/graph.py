@@ -14,10 +14,13 @@ A graphed executor owns static buffers for every plan input.  Its first
 call runs the plan once eagerly on a side stream (the kernels build,
 qattention's occupancy query and qmatmul's split-K scratch for that stream
 are set up), then captures the whole step list into a CUDA graph on the same
-stream, with each state output copied back into its state input buffer at
-the end.  Every call then copies in the feeds that are not already those
-buffers and replays.  The same kernels run in the same order on the same
-bytes, so every result is bit for bit the eager loop's.
+stream.  Since the executor owns the state buffers, the graph's plan writes
+each state that a ``kv_write`` step alone updates into its own buffer
+(:func:`writes_states_in_place`); any other state output is copied back into
+its state input buffer at the end.  Every call then copies in the feeds that
+are not already those buffers and replays.  The in-place step writes the
+rows the eager step writes into its copy, so every result is bit for bit
+the eager loop's.
 
 The contract a caller sees:
 
@@ -39,6 +42,8 @@ and its per-step spans.
 """
 from __future__ import annotations
 
+import dataclasses
+from collections import Counter
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -46,6 +51,7 @@ import torch
 from .. import kernels
 from ..kernels import qmatmul
 from ..obs import trace as _trace
+from .plan import SLOT
 
 Outputs = Dict[str, torch.Tensor]
 #: ``capture(body, device) -> (replay, launches)``: ``replay()`` runs what
@@ -125,6 +131,24 @@ def capture_cuda_graph(body: Callable[[], Outputs], device: torch.device):
     return replay, launches
 
 
+def writes_states_in_place(plan):
+    """``plan`` with each ``kv_write`` step marked ``in_place`` where the
+    step alone reads a state's input slot and produces that state's output:
+    it then writes the new rows into the state's own buffer and returns it,
+    so the state needs no copy back.  Only an executor that owns the state
+    buffers runs the result (:class:`GraphedExecutor`); every other caller's
+    cache is left as it was."""
+    readers = Counter(a.index for st in plan.steps for a in st.args if a.kind == SLOT)
+    own = {s.in_slot: s.output for s in plan.states}
+    steps = [
+        dataclasses.replace(st, params={**st.params, "in_place": True})
+        if st.kernel == "kv_write" and own.get(st.args[0].index) == st.outputs[0]
+        and readers[st.args[0].index] == 1 else st
+        for st in plan.steps
+    ]
+    return dataclasses.replace(plan, steps=steps)
+
+
 def _same_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.data_ptr() == b.data_ptr() and a.stride() == b.stride()
 
@@ -145,19 +169,25 @@ class GraphedExecutor(EagerExecutor):
         self._failed = False
         #: state output name -> its state input name
         self._state_of = {s.output: s.input for s in plan.states}
+        #: what the graph runs: the plan writing the states it can into
+        #: their own (static) buffers
+        self._in_place = writes_states_in_place(plan)
         #: feeds copied into the static buffers by the last replayed call
         self.copied_in = 0
 
     def _body(self) -> Outputs:
-        outs = self.plan.execute(self._static)
+        outs = self._in_place.execute(self._static)
         for s in self.plan.states:
-            self._static[s.input].copy_(outs[s.output])
+            buf, out = self._static[s.input], outs[s.output]
+            if out is not buf:
+                buf.copy_(out)
         return outs
 
     def _prepare(self, feeds: Dict[str, Any]) -> None:
         """Static buffers from the first call's feeds, then the capture; on
         a failed capture every call runs eagerly from then on."""
-        self._static = {name: feeds[name].clone() for name, _ in self.plan.inputs}
+        self._static = {name: feeds[name].clone(memory_format=torch.contiguous_format)
+                        for name, _ in self.plan.inputs}
         try:
             self._replay, self._launches = self._capture(self._body, self.device)
         except RuntimeError:

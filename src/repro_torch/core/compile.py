@@ -9,7 +9,10 @@ The flow is ``repro``'s, level for level:
 2. **Fuse** — declarative chain patterns (QLINEAR / GEMM / LUT) and the
    programmatic attention-region matcher collapse the paper's op chains
    into ``qlinear_matmul`` / ``qlinear_conv2d`` / ``qattention`` /
-   ``qact_lut`` steps.  On the ``cuda`` backend a LUT step that alone reads
+   ``qact_lut`` steps; the routed-expert regions become ``qmoe`` steps, and
+   each codified KV update of a state (``Add(Mul(S, Sub(1, H)), Mul(X,
+   H))``) one ``kv_write`` step, which writes only the rows ``H`` selects.
+   On the ``cuda`` backend a LUT step that alone reads
    a ``qlinear_matmul`` step's output then folds into that step's epilogue
    (:meth:`Compiler._fold_lut_epilogues`); ``ref`` keeps ``repro``'s steps.
 3. **Lower** — drafts become a liveness-planned :class:`ExecutionPlan`.
@@ -697,6 +700,50 @@ def _build_qattention(compiler: "Compiler", m: dict) -> Optional[StepDraft]:
     )
 
 
+def _match_kv_write(ga: GraphAnalysis, add: Node, states: frozenset) -> Optional[dict]:
+    """Match the codified KV update ``Add(Mul(S, Sub(1, H)), Mul(X, H))``
+    at its Add, on structure only: ``S`` a declared state input, int8
+    ``(N, R, W)``; ``H`` int8 ``(N, R, 1)``; ``X`` int8 ``(N, 1, W)``; the
+    constant an int8 1; each Mul and the Sub read by the region alone
+    (either operand order of a Mul or the Add).  Returns the capture for
+    :func:`_build_kv_write`, or None."""
+    if add.op_type != "Add" or len(add.inputs) != 2:
+        return None
+    muls = [ga.producers.get(t) for t in add.inputs]
+    if any(m is None or m.op_type != "Mul" or ga.single_consumer(t) is not add
+           for m, t in zip(muls, add.inputs)):
+        return None
+    for kept, put in (muls, muls[::-1]):
+        for s, keep in (kept.inputs, kept.inputs[::-1]):
+            sub = ga.producers.get(keep)
+            if s not in states or sub is None or sub.op_type != "Sub" \
+                    or ga.single_consumer(keep) is not kept:
+                continue
+            one, h = sub.inputs
+            c = ga.const(one)
+            if c is None or c.dtype != np.int8 or c.size != 1 or int(c.reshape(())) != 1 \
+                    or h not in put.inputs:
+                continue
+            x = put.inputs[1] if put.inputs[0] == h else put.inputs[0]
+            shape = ga.shape(s)
+            if any(ga.dtype(t) != "int8" for t in (s, h, x)) or shape is None or len(shape) != 3:
+                continue
+            n, r, w = shape
+            if tuple(ga.shape(h) or ()) != (n, r, 1) or tuple(ga.shape(x) or ()) != (n, 1, w):
+                continue
+            return {"s": s, "h": h, "x": x, "out": add.outputs[0], "nodes": (sub, kept, put, add)}
+    return None
+
+
+def _build_kv_write(m: dict) -> StepDraft:
+    """Lower a matched KV update onto one ``kv_write`` step
+    (``backend/fused.py``); it needs no per-bucket binding."""
+    return StepDraft(
+        "kv_write", [tensor_arg(m["s"]), tensor_arg(m["h"]), tensor_arg(m["x"])], [m["out"]],
+        kind="fused_kv_write", name=m["nodes"][-1].name,
+    )
+
+
 def _build_qmoe(compiler: "Compiler", m: dict) -> StepDraft:
     """Lower a matched routed-expert region (:mod:`repro_torch.core.moe`)
     onto one ``qmoe`` step: the weights laid out once on the device
@@ -826,6 +873,7 @@ class Compiler:
             "lut_epilogues": 0,
             "fused_qattention": 0,
             "fused_qmoe": 0,
+            "fused_kv_write": 0,
             "generic": 0,
             "folded": self.pass_report.total("folded"),
             "eliminated": self.pass_report.total("eliminated"),
@@ -844,9 +892,9 @@ class Compiler:
         attn_emit, attn_skip = ({}, set())
         if self.fuse:
             attn_emit, attn_skip = self._qattention_regions()
-            moe_emit, moe_skip = self._qmoe_regions()
-            attn_emit.update(moe_emit)
-            attn_skip.update(moe_skip)
+            for emit, skip in (self._qmoe_regions(), self._kv_write_regions()):
+                attn_emit.update(emit)
+                attn_skip.update(skip)
         with _trace.span("compile.fuse", nodes=len(order)) as fuse_span:
             for node in order:
                 if id(node) in consumed or id(node) in attn_skip:
@@ -977,6 +1025,22 @@ class Compiler:
             emit[id(sink)] = _build_qmoe(self, m)
             skip.update(id(n) for n in m["nodes"] if n is not sink)
             self.provenance.add_fusion("qmoe", m["anchor"].name,
+                                       tuple(n.name for n in m["nodes"]), m["out"])
+        return emit, skip
+
+    def _kv_write_regions(self):
+        """Every codified KV update (:func:`_match_kv_write`), keyed like
+        the attention regions by its sink, the Add."""
+        emit: Dict[int, StepDraft] = {}
+        skip: set = set()
+        states = frozenset(s.input for s in self.graph.states)
+        for node in self.graph.nodes:
+            m = _match_kv_write(self.analysis, node, states)
+            if m is None:
+                continue
+            emit[id(node)] = _build_kv_write(m)
+            skip.update(id(n) for n in m["nodes"][:-1])
+            self.provenance.add_fusion("kv_write", node.name,
                                        tuple(n.name for n in m["nodes"]), m["out"])
         return emit, skip
 

@@ -7,6 +7,7 @@ qattention  — fused int8 attention region (scores, LUT softmax, context)
 qmoe        — the routed-expert step (router, top-k, SwiGLU experts, combine)
 qact_lut    — the exact 256-entry activation table: builder and the gather
               kernel for tables the plan does not fold into a matmul
+kv_write    — the decode step's KV update: the new rows written in place
 ops         — plan-time templates, per-bucket binding, the planned matmul,
               activation and (im2col) conv calls
 ref         — plain PyTorch oracles (the ``ref`` backend)
@@ -18,15 +19,15 @@ its first launch.
 """
 from typing import Dict
 
-from . import ops, pack, qact_lut, qattention, qmatmul, qmoe, ref  # noqa: F401
+from . import kv_write, ops, pack, qact_lut, qattention, qmatmul, qmoe, ref  # noqa: F401
 
 
-_COUNTERS = (qmatmul.LAUNCHES, qattention.LAUNCHES, qact_lut.LAUNCHES, qmoe.LAUNCHES)
+_COUNTERS = (qmatmul.LAUNCHES, qattention.LAUNCHES, qact_lut.LAUNCHES, qmoe.LAUNCHES, kv_write.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`, by name."""
-    return {**qmatmul.LAUNCHES, **qattention.LAUNCHES, **qact_lut.LAUNCHES, **qmoe.LAUNCHES}
+    return {name: n for counters in _COUNTERS for name, n in counters.items()}
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:

@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-STEMS = ("qmatmul", "qattention", "qact_lut", "qmoe")
+STEMS = ("qmatmul", "qattention", "qact_lut", "qmoe", "kv_write")
 
 _LOCK = threading.Lock()
 _FUNCS: Dict[tuple, object] = {}

@@ -195,13 +195,23 @@ def _token_graphs():
 
 @pytest.mark.parametrize("graph", ["prefill", "decode"])
 def test_token_graphs_plan_like_repro(graph):
+    """The port plans repro's steps, but for the decode graph's KV updates:
+    each codified Sub, Mul, Mul, Add group on a state is one ``kv_write``
+    step at the Add (``core/compile.py::_match_kv_write``), two a layer."""
     model = _token_graphs()[graph]
     kw = dict(batch="dynamic", dynamic_axes={"N": None, "S": 8})
     jcm = jcompile(model, backend="ref", **kw)
-    want = [s.kernel for s in jcm.plan.steps]
     for backend in ("ref", "cuda"):
         cm = compile_model(_port(model), backend=backend, device="cpu", **kw)
+        groups = [f.nodes for f in cm.plan.provenance.fusions if f.pattern == "kv_write"]
+        kinds = {s.name: s.kernel for s in jcm.plan.steps}
+        assert all([kinds[n] for n in g] == ["op.Sub", "op.Mul", "op.Mul", "op.Add"] for g in groups)
+        sinks = {g[-1] for g in groups}
+        folded = {n for g in groups for n in g[:-1]}
+        want = ["kv_write" if s.name in sinks else s.kernel
+                for s in jcm.plan.steps if s.name not in folded]
         assert [s.kernel for s in cm.plan.steps] == want
+        assert cm.stats["fused_kv_write"] == len(groups) == (2 * JConfig().n_layers if graph == "decode" else 0)
         assert cm.stats["fused_qattention"] == jcm.stats["fused_qattention"] > 0
         assert cm.stats["fused_qlinear"] == jcm.stats["fused_qlinear"] > 0
 

@@ -357,7 +357,7 @@ def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
 def test_library_named_by_source_hash():
     a, b = _build.library_path("qmatmul"), _build.library_path("qattention")
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so" and a != b
-    assert set(_build.STEMS) == {"qmatmul", "qattention", "qact_lut", "qmoe"}
+    assert set(_build.STEMS) == {"qmatmul", "qattention", "qact_lut", "qmoe", "kv_write"}
     assert a == _build.library_path("qmatmul")
 
 
