@@ -26,11 +26,9 @@ tile-annotated — becomes a stable file:
   ``heuristic|tuned|cache`` source.  :func:`load_artifact` rebuilds the
   compiled model **without re-running passes, fusion or lowering** — no
   ``compile.fuse`` / ``compile.lower`` span is emitted — and pre-seeds the
-  plan cache by replaying each recorded cell through
-  :func:`~repro_torch.backend.lowering.specialize_plan` with a replay tuner
-  that stamps the recorded tiles and source tags back in.  A cell's entry
-  is ``(plan, executor)``, the executor as
-  :func:`~repro_torch.backend.graph.executor_for` makes it; ``warm=True``
+  plan cache by installing each recorded cell
+  (:meth:`~repro_torch.core.compile.CompiledModel.install`) with a replay
+  tuner that stamps the recorded tiles and source tags back in; ``warm=True``
   runs each recorded cell's executor once on zero feeds, which also builds
   and loads the kernels (and captures a decode cell's CUDA graph).
 * **State slots** — the decode plan's int8 KV cache bindings round-trip.
@@ -54,8 +52,6 @@ from ..core import pqir
 from ..kernels import ops as kops
 from ..obs.provenance import PlanProvenance
 from .generic import TORCH_DTYPES
-from .graph import executor_for
-from .lowering import specialize_plan
 from .plan import (
     Arg,
     ExecutionPlan,
@@ -390,8 +386,8 @@ def load_artifact(
     no liveness planning happens (no ``compile.fuse``/``compile.lower``
     span).  The plan cache is pre-seeded with every hot cell recorded at
     save time (recorded tiles + source tags replayed through
-    :func:`specialize_plan`, so only ``backend.specialize`` spans appear,
-    and by ``put``, so the cache's hit/miss counters stay at zero); serving
+    ``CompiledModel.install``, so only ``backend.specialize`` spans appear
+    and the cache's hit/miss counters stay at zero); serving
     the recorded traffic therefore specializes nothing new.
 
     ``warm=True`` additionally executes each pre-seeded cell once on zero
@@ -481,13 +477,9 @@ def load_artifact(
         replay = _ReplayTuner(cells)
         for cell in cells:
             bindings = {a: int(v) for a, v in cell["bindings"].items()}
-            spec = specialize_plan(plan, bindings, tuner=replay)
-            # direct put — no lookup, so hit/miss counters stay untouched and
-            # "zero new specializations" is observable as misses == 0; routed
-            # through cache_key so a shared cache gets the same
-            # graph-qualified key the model will look up with
-            run = executor_for(spec, cm.device, cm.plan_cache.graph_stats)
-            cm.plan_cache.put(cm.cache_key(bindings), (spec, run))
+            # no lookup, so hit/miss counters stay untouched and "zero new
+            # specializations" is observable as misses == 0
+            _, run = cm.install(bindings, replay)
             if warm:
                 feeds = _zero_feeds(cm, bindings)
                 if feeds is not None:

@@ -445,14 +445,15 @@ class PlanCache(LruCache):
 
     Keyed by the sorted ``(axis, bucket)`` bindings tuple
     (:func:`bindings_key`); each value is the pair ``(specialized
-    ExecutionPlan, executor)``, the executor made by
-    :func:`repro_torch.backend.graph.executor_for` (a CUDA graph for a bound
-    decode plan on the card, freed with its entry).  A bucket combination is
-    specialized at most once while it stays resident (the acceptance
-    criterion for scenario-specialized serving); ``misses`` therefore counts
-    specializations and ``hits`` counts cache-served requests.  The bound
-    keeps adversarial shape traffic from accumulating specializations
-    without limit — evicted buckets simply re-specialize on their next use.
+    ExecutionPlan, executor)``, made only by
+    :meth:`repro_torch.core.compile.CompiledModel.install` (the executor a
+    CUDA graph for a bound decode plan on the card, freed with its entry).
+    A bucket combination is specialized at most once while it stays
+    resident (the acceptance criterion for scenario-specialized serving);
+    ``misses`` therefore counts specializations and ``hits`` counts
+    cache-served requests.  The bound keeps adversarial shape traffic from
+    accumulating specializations without limit — evicted buckets simply
+    re-specialize on their next use.
     ``graph_stats`` counts how the entries' executors ran: ``captures`` (CUDA
     graphs captured), ``replays`` and ``eager`` calls.
     """

@@ -6,9 +6,9 @@ The flow is ``repro``'s, level for level:
 1. **Optimize** — the :mod:`repro_torch.passes` pipeline (constant folding,
    identity/dead-node elimination, sinking, §3.1 rescale and bias folding,
    Q/DQ cancellation); bit-exact, and the caller's artifact is cloned.
-2. **Fuse** — declarative chain patterns (QLINEAR / GEMM / LUT) and the
-   programmatic attention-region matcher collapse the paper's op chains
-   into ``qlinear_matmul`` / ``qlinear_conv2d`` / ``qattention`` /
+2. **Fuse** — declarative chain patterns (``FUSIONS``: QLINEAR / GEMM /
+   LUT) and programmatic region matchers (``REGIONS``) collapse the paper's
+   op chains into ``qlinear_matmul`` / ``qlinear_conv2d`` / ``qattention`` /
    ``qact_lut`` steps; the routed-expert regions become ``qmoe`` steps, and
    each codified KV update of a state (``Add(Mul(S, Sub(1, H)), Mul(X,
    H))``) one ``kv_write`` step, which writes only the rows ``H`` selects.
@@ -60,7 +60,7 @@ from ..passes.analysis import (
 )
 from ..passes.rewrite import Match, OpSpec, Pattern, match_chain, ql_params
 from . import runtime
-from .moe import qmoe_exempt_nodes, qmoe_regions
+from .moe import qmoe_regions
 from .pqir import Model, Node
 
 # ---------------------------------------------------------------------------
@@ -650,24 +650,16 @@ def _match_qattention(ga: GraphAnalysis, anchor: Node) -> Optional[dict]:
     }
 
 
+def _qattention_captures(ga: GraphAnalysis) -> List[dict]:
+    """Every attention region of the graph, in node order of anchors."""
+    return [m for m in (_match_qattention(ga, n) for n in ga.graph.nodes
+                        if n.op_type == "MatMulInteger") if m]
+
+
 def qattention_exempt_nodes(ga: GraphAnalysis) -> frozenset:
-    """Names of every node inside a matched attention region — the regions
-    the per-axis elementwise proof skips (see
-    :func:`repro_torch.passes.analysis.axis_mixing_nodes`).  The skip is sound
-    because the region's own masking semantics make zero padding exact along
-    any axis: a zero-padded key carries a zero mask, its score is driven to
-    −big, and its LUT weight is exactly ``lut[0] == 0`` (the matcher checks
-    this), so padded positions contribute nothing to the softmax denominator
-    or the context; padded query rows produce finite garbage (the
-    denominator can never be 0) that run-time slicing discards."""
-    exempt = set()
-    for node in ga.graph.nodes:
-        if node.op_type != "MatMulInteger":
-            continue
-        m = _match_qattention(ga, node)
-        if m is not None:
-            exempt.update(n.name for n in m["nodes"])
-    return frozenset(exempt)
+    """Names of every node inside a matched attention region: the nodes the
+    padding proof exempts (see :data:`REGIONS`)."""
+    return frozenset(n.name for m in _qattention_captures(ga) for n in m["nodes"])
 
 
 def _build_qattention(compiler: "Compiler", m: dict) -> Optional[StepDraft]:
@@ -731,16 +723,23 @@ def _match_kv_write(ga: GraphAnalysis, add: Node, states: frozenset) -> Optional
             n, r, w = shape
             if tuple(ga.shape(h) or ()) != (n, r, 1) or tuple(ga.shape(x) or ()) != (n, 1, w):
                 continue
-            return {"s": s, "h": h, "x": x, "out": add.outputs[0], "nodes": (sub, kept, put, add)}
+            return {"s": s, "h": h, "x": x, "out": add.outputs[0], "nodes": (sub, kept, put, add),
+                    "anchor": add}
     return None
 
 
-def _build_kv_write(m: dict) -> StepDraft:
+def _kv_write_captures(ga: GraphAnalysis) -> List[dict]:
+    """Every codified KV update of a declared state, in node order."""
+    states = frozenset(s.input for s in ga.graph.states)
+    return [m for m in (_match_kv_write(ga, n, states) for n in ga.graph.nodes) if m]
+
+
+def _build_kv_write(compiler: "Compiler", m: dict) -> StepDraft:
     """Lower a matched KV update onto one ``kv_write`` step
     (``backend/fused.py``); it needs no per-bucket binding."""
     return StepDraft(
         "kv_write", [tensor_arg(m["s"]), tensor_arg(m["h"]), tensor_arg(m["x"])], [m["out"]],
-        kind="fused_kv_write", name=m["nodes"][-1].name,
+        kind="fused_kv_write", name=m["anchor"].name,
     )
 
 
@@ -762,6 +761,26 @@ def _build_qmoe(compiler: "Compiler", m: dict) -> StepDraft:
         consts=(wr, gu, wd, _dev(compiler, m["exp_lut"]), _dev(compiler, m["silu"])),
         kind="fused_qmoe", name=m["anchor"].name,
     )
+
+
+#: The compiler's region table: multi-node DAG regions, each lowered to one
+#: step.  An entry is (provenance pattern name, finder returning every
+#: capture in node order, plan-step builder, exempt from the padding proof).
+#: Every capture carries its ``nodes``, its ``out`` tensor and its
+#: ``anchor``; the step is emitted at the member that produces ``out``.
+#: Exempt regions make zero padding exact along any axis by their own
+#: semantics, which the per-op proof
+#: (:func:`repro_torch.passes.analysis.axis_mixing_nodes`) cannot see: a
+#: padded key carries a zero mask, its score is driven to −big and its LUT
+#: weight is exactly ``lut[0] == 0`` (the matcher checks this), so it adds
+#: nothing to the softmax denominator or the context, and padded query rows
+#: give finite garbage (the denominator is never 0) that slicing discards;
+#: the experts work token by token, reducing over the expert axis only.
+REGIONS = (
+    ("qattention", _qattention_captures, _build_qattention, True),
+    ("qmoe", qmoe_regions, _build_qmoe, True),
+    ("kv_write", _kv_write_captures, _build_kv_write, False),
+)
 
 
 class Compiler:
@@ -844,17 +863,20 @@ class Compiler:
         self.plan_cache = plan_cache
         self.inits = {k: v for k, v in self.graph.initializers.items()}
         self.analysis = GraphAnalysis(self.graph)
+        # every region is matched once, here: the fuse loop lowers the
+        # captures, and the padding proof below exempts the exempt ones
+        self.regions = [
+            (pattern, build, exempt, m) for pattern, find, build, exempt in REGIONS
+            if fuse or (batch == "dynamic" and exempt) for m in find(self.analysis)
+        ]
         if batch == "dynamic":
             # zero padding along a dynamic axis is only exact when no op
             # mixes information across it — prove each requested axis
             # independently and reject (rather than silently mis-serve)
-            # graphs with e.g. a global ReduceMean or an axis-folding Reshape.
-            # Matched attention regions are exempt: their masking semantics
-            # make zero padding exact by construction (the region reduces
-            # over keys whose padded LUT weight is exactly 0 — see
-            # qattention_exempt_nodes), which the per-op proof cannot see.
+            # graphs with e.g. a global ReduceMean or an axis-folding Reshape
+            # (the exempt regions aside: see REGIONS).
             implicit = implicit_batch_graph(self.graph)
-            exempt = qattention_exempt_nodes(self.analysis) | qmoe_exempt_nodes(self.analysis)
+            exempt = frozenset(n.name for _, _, ex, m in self.regions if ex for n in m["nodes"])
             for axis in self.dynamic_axes:
                 problems = axis_mixing_nodes(
                     self.analysis, axis, implicit=implicit, exempt=exempt
@@ -884,23 +906,28 @@ class Compiler:
         order = self.graph.toposorted()
         consumed = set()
         drafts: List[StepDraft] = []
-        # attention regions are DAGs whose members straddle the anchor in
-        # topo order (the K-Transpose precedes it, V may be produced after
-        # it): match them up front, skip members as they stream past, and
-        # emit the fused step at the region's sink — the one position where
-        # every region input is guaranteed already produced
-        attn_emit, attn_skip = ({}, set())
-        if self.fuse:
-            attn_emit, attn_skip = self._qattention_regions()
-            for emit, skip in (self._qmoe_regions(), self._kv_write_regions()):
-                attn_emit.update(emit)
-                attn_skip.update(skip)
+        # a region is a DAG whose members straddle its anchor in topo order
+        # (the K-Transpose precedes the attention's anchor, V may be produced
+        # after it): skip members as they stream past, and emit the fused step
+        # at the region's sink — the one position where every region input is
+        # guaranteed already produced
+        region_emit: Dict[int, StepDraft] = {}
+        region_skip: set = set()
+        for pattern, build, _, m in (self.regions if self.fuse else ()):
+            draft = build(self, m)
+            if draft is None:
+                continue  # e.g. attention over symbolic dims in a static compile
+            sink = next(n for n in m["nodes"] if m["out"] in n.outputs)
+            region_emit[id(sink)] = draft
+            region_skip.update(id(n) for n in m["nodes"] if n is not sink)
+            self.provenance.add_fusion(pattern, m["anchor"].name,
+                                       tuple(n.name for n in m["nodes"]), m["out"])
         with _trace.span("compile.fuse", nodes=len(order)) as fuse_span:
             for node in order:
-                if id(node) in consumed or id(node) in attn_skip:
+                if id(node) in consumed or id(node) in region_skip:
                     continue
-                if id(node) in attn_emit:
-                    draft = attn_emit[id(node)]
+                if id(node) in region_emit:
+                    draft = region_emit[id(node)]
                 else:
                     draft = self._fused_draft(node, consumed) if self.fuse else None
                     if draft is None:
@@ -987,62 +1014,6 @@ class Compiler:
             self.stats["lut_epilogues"] += 1
             self.provenance.add_fusion("lut_epilogue", mm.name, (mm.name, lut.name), y)
         return [d for d in drafts if id(d) not in folded]
-
-    def _qattention_regions(self):
-        """Match every attention region once, up front.  Returns
-        ``(emit, skip)``: ``emit`` maps the id of each region's sink node
-        (its final QuantizeLinear — last in any topo order, since every
-        other member is its ancestor) to the fused StepDraft; ``skip`` holds
-        the ids of all other member nodes."""
-        emit: Dict[int, StepDraft] = {}
-        skip: set = set()
-        for node in self.graph.nodes:
-            if node.op_type != "MatMulInteger":
-                continue
-            qm = _match_qattention(self.analysis, node)
-            if qm is None:
-                continue
-            draft = _build_qattention(self, qm)
-            if draft is None:
-                continue
-            sink = qm["nodes"][-1]
-            emit[id(sink)] = draft
-            skip.update(id(n) for n in qm["nodes"] if n is not sink)
-            self.provenance.add_fusion(
-                "qattention", node.name,
-                tuple(n.name for n in qm["nodes"]), qm["out"],
-            )
-        return emit, skip
-
-    def _qmoe_regions(self):
-        """Every routed-expert region, matched up front like the attention
-        regions: ``(emit, skip)`` keyed by the region's sink (its last
-        QuantizeLinear) and its other members."""
-        emit: Dict[int, StepDraft] = {}
-        skip: set = set()
-        for m in qmoe_regions(self.analysis):
-            sink = [n for n in m["nodes"] if m["out"] in n.outputs][0]
-            emit[id(sink)] = _build_qmoe(self, m)
-            skip.update(id(n) for n in m["nodes"] if n is not sink)
-            self.provenance.add_fusion("qmoe", m["anchor"].name,
-                                       tuple(n.name for n in m["nodes"]), m["out"])
-        return emit, skip
-
-    def _kv_write_regions(self):
-        """Every codified KV update (:func:`_match_kv_write`), keyed like
-        the attention regions by its sink, the Add."""
-        emit: Dict[int, StepDraft] = {}
-        skip: set = set()
-        states = frozenset(s.input for s in self.graph.states)
-        for node in self.graph.nodes:
-            m = _match_kv_write(self.analysis, node, states)
-            if m is None:
-                continue
-            emit[id(node)] = _build_kv_write(m)
-            skip.update(id(n) for n in m["nodes"][:-1])
-            self.provenance.add_fusion("kv_write", node.name,
-                                       tuple(n.name for n in m["nodes"]), m["out"])
-        return emit, skip
 
     def _fused_draft(self, node: Node, consumed: set) -> Optional[StepDraft]:
         for pattern, builder in FUSIONS:
@@ -1268,12 +1239,19 @@ class CompiledModel:
                 f"unknown dynamic axes {unknown}: this artifact is open over "
                 f"{list(self.dynamic_axes)}"
             )
-        key = self.cache_key(bindings)
-        entry = self.plan_cache.get(key)
-        if entry is None:
-            plan = specialize_plan(self.plan, bindings, tuner=self.autotuner)
-            entry = (plan, executor_for(plan, self.device, self.plan_cache.graph_stats))
-            self.plan_cache.put(key, entry)
+        entry = self.plan_cache.get(self.cache_key(bindings))
+        return entry if entry is not None else self.install(bindings, self.autotuner)
+
+    def install(self, bindings: Dict[str, int], tuner) -> tuple:
+        """Put the ``(plan, executor)`` entry of a bucket combination in the
+        plan cache, replacing any it has, and return it: the template
+        specialized with ``tuner`` (None: heuristic tiles) and the executor
+        :func:`~repro_torch.backend.graph.executor_for` picks, counting into
+        the cache's ``graph_stats``.  The only maker of entries; it counts
+        no hit and no miss."""
+        plan = specialize_plan(self.plan, bindings, tuner=tuner)
+        entry = (plan, executor_for(plan, self.device, self.plan_cache.graph_stats))
+        self.plan_cache.put(self.cache_key(bindings), entry)
         return entry
 
     @property

@@ -32,7 +32,7 @@ dense region (every expert on every token: what :class:`ReferenceRuntime`
 evaluates) equals the routed computation (only the k chosen experts per
 token: what the fused ``qmoe`` step computes, :mod:`repro_torch.kernels.qmoe`)
 bit for bit.  The region works per token: nothing mixes rows, so padding a
-token axis is exact (:func:`qmoe_exempt_nodes`).
+token axis is exact, and the compiler's padding proof exempts its nodes.
 
 :func:`match_qmoe` finds the region in an (optimized) graph from its router
 ``MatMulInteger``, and :func:`qmoe_regions` lists every one; the compiler
@@ -372,11 +372,3 @@ def qmoe_regions(ga: GraphAnalysis) -> List[dict]:
     v = _View(ga)
     return [m for m in (match_qmoe(ga, n, v) for n in ga.graph.nodes if _is_router(v, n)) if m]
 
-
-def qmoe_exempt_nodes(ga: GraphAnalysis) -> frozenset:
-    """Names of every node inside a routed-expert region: the region works
-    token by token (its reductions run over the expert axis only), so zero
-    padding along a token axis is exact there, which the per-op proof of
-    :func:`repro_torch.passes.analysis.axis_mixing_nodes` cannot see through
-    its broadcast contractions."""
-    return frozenset(n.name for m in qmoe_regions(ga) for n in m["nodes"])

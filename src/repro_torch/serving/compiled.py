@@ -72,8 +72,6 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..backend.autotune import TuneJob
-from ..backend.graph import executor_for
-from ..backend.lowering import specialize_plan
 from ..backend.plan import bindings_key
 from ..core.compile import BATCH_AXIS, CompiledModel
 from ..obs import trace as _trace
@@ -485,11 +483,7 @@ class CompiledModelServer:
             # every step of the cell is now resolved in the tuner's session,
             # so this specialization measures nothing — it just stamps the
             # tuned tiles (and their provenance source tags) into a new plan
-            plan = specialize_plan(self.cm.plan, job.bindings, tuner=self.autotuner)
-            # cache_key: graph-qualified when the cache is fleet-shared, the
-            # plain bindings key otherwise — must match what step() looks up
-            run = executor_for(plan, self.cm.device, self.cm.plan_cache.graph_stats)
-            self.cm.plan_cache.put(self.cm.cache_key(job.bindings), (plan, run))
+            self.cm.install(job.bindings, self.autotuner)
             self._count("tuned_swaps")
             self.registry.counter("autotune.swaps").inc()
 

@@ -27,6 +27,8 @@ only float tolerance is on the generic ops whose float result depends on
 the library's transcendental or summation order (Tanh, Sigmoid, Erf, Sqrt,
 Pow, Softmax, float MatMul/means) — ops no fused path uses.
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -214,6 +216,50 @@ def test_token_graphs_plan_like_repro(graph):
         assert cm.stats["fused_kv_write"] == len(groups) == (2 * JConfig().n_layers if graph == "decode" else 0)
         assert cm.stats["fused_qattention"] == jcm.stats["fused_qattention"] > 0
         assert cm.stats["fused_qlinear"] == jcm.stats["fused_qlinear"] > 0
+
+
+#: A Mellum2-shaped token path at a small size: GQA, window layers with
+#: ring caches, routed experts.
+MELLUM2_SHAPED = dict(vocab=97, d_model=64, n_heads=4, n_layers=4, n_kv_heads=2, head_dim=16,
+                      layer_kinds=("window", "window", "window", "full"), window=8,
+                      n_experts=8, top_k=2, d_expert=32)
+
+
+@pytest.mark.parametrize("case", ["mha", "mellum2"])
+def test_each_region_is_matched_once(case, monkeypatch):
+    """A dynamic compile tries each region matcher at most once on a node,
+    the fusion and the padding proof sharing its captures, and records
+    every qattention fusion, then every qmoe, then every kv_write, before
+    any chain fusion."""
+    from repro_torch.core import compile as port_compile
+    from repro_torch.core import moe
+    from repro_torch.serving import token_path as port_tp
+
+    tried = Counter()
+    for module, name in ((port_compile, "_match_qattention"), (moe, "match_qmoe"),
+                         (port_compile, "_match_kv_write")):
+        def spy(ga, node, *rest, _real=getattr(module, name), _name=name):
+            tried[_name, node.name] += 1
+            return _real(ga, node, *rest)
+        monkeypatch.setattr(module, name, spy)
+    cfg = port_tp.TokenPathConfig(**(MELLUM2_SHAPED if case == "mellum2" else {}))
+    params = port_tp.make_token_params(cfg, seed=3)
+    regions = ["qattention", "qmoe", "kv_write"]
+    for graph, build in (("prefill", port_tp.build_prefill_model), ("decode", port_tp.build_decode_model)):
+        tried.clear()
+        cm = compile_model(build(cfg, params), backend="cuda", device="cpu", batch="dynamic",
+                           dynamic_axes={"N": None, "S": 8})
+        assert {name for name, _ in tried} == {"_match_qattention", "_match_kv_write"} | (
+            {"match_qmoe"} if case == "mellum2" else set())
+        assert max(tried.values()) == 1, [k for k, v in tried.items() if v > 1]
+        kinds = [f.pattern for f in cm.plan.provenance.fusions]
+        head = kinds[:sum(k in regions for k in kinds)]
+        assert head == sorted(head, key=regions.index) and set(head) <= set(regions)
+        for kind in regions:
+            assert kinds.count(kind) == cm.stats[f"fused_{kind}"]
+        assert cm.stats["fused_qattention"] > 0
+        assert cm.stats["fused_qmoe"] == (cfg.n_layers if case == "mellum2" else 0)
+        assert cm.stats["fused_kv_write"] == (2 * cfg.n_layers if graph == "decode" else 0)
 
 
 def test_specializations_share_template_tensors():

@@ -12,7 +12,10 @@ On the CPU:
   logits outlive the next call, each replay adds the captured launches to
   ``launch_counts()``, and a capture that fails leaves every call eager;
 * the token path's tiny config served by ``ServeEngine`` through the
-  graphed executor equals the eager loop in every token, logit and KV row.
+  graphed executor equals the eager loop in every token, logit and KV row;
+* every maker of a plan-cache entry (lazy specialization, an artifact's
+  recorded cells, the server's tuned swap) goes through
+  ``CompiledModel.install``.
 
 On the card (marked ``card``; ``python -m pytest tests/test_torch_plan_graph.py -m card``):
 40 decode steps replayed as a CUDA graph against the eager loop, with
@@ -26,6 +29,8 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.backend.artifact import load_artifact, save_artifact
+from repro_torch.backend.autotune import Autotuner
 from repro_torch.backend.graph import (
     EagerExecutor,
     GraphedExecutor,
@@ -33,6 +38,9 @@ from repro_torch.backend.graph import (
     executor_for,
     record_launches,
 )
+from repro_torch.core.compile import CompiledModel, compile_model
+from repro_torch.core.toolchain import MLPSpec, quantize_mlp
+from repro_torch.serving import CompiledModelServer, CompiledServerConfig
 from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serving.token_path import CompiledTokenAdapter, CompiledTokenPath, TokenPathConfig
 
@@ -258,6 +266,64 @@ def test_the_served_token_path_equals_the_eager_loop():
     _assert_equal(got[2], want[2])
     stats = tps[0].graph_stats()
     assert stats["captures"] == 1 and stats["replays"] == len(got[1])
+
+
+# -- one maker of plan-cache entries --------------------------------------------
+
+def _tuned_swap_cache():
+    """An MLP served with a background tuner until its cell's tuned plan
+    is swapped in."""
+    rng = np.random.default_rng(4)
+    spec = MLPSpec(weights=[rng.normal(0, 0.4, (64, 64)).astype(np.float32) for _ in range(2)],
+                   biases=[rng.normal(0, 0.2, (64,)).astype(np.float32) for _ in range(2)],
+                   activations=["Relu", None])
+    cm = compile_model(quantize_mlp(spec, rng.normal(0, 1.0, (32, 64)).astype(np.float32)),
+                       backend="cuda", device="cpu", batch="dynamic")
+    tuner = Autotuner(budget=2, measure_fn=lambda step, shape, backend: 1.0)
+    srv = CompiledModelServer(cm, CompiledServerConfig(max_batch=4), autotuner=tuner)
+    for _ in range(4):
+        srv.submit(rng.integers(-128, 128, (64,)).astype(np.int8))
+    srv.step()
+    while srv.tuning_pending:
+        srv.step()
+    assert srv.metrics["tuned_swaps"] == 1
+    return cm.plan_cache
+
+
+@pytest.mark.parametrize("maker", ["specialized", "load_artifact", "tuned swap"])
+def test_every_cache_entry_is_made_by_install(maker, monkeypatch, tmp_path):
+    """Lazy specialization, an artifact's recorded cells and the server's
+    tuned swap all put their entries through ``CompiledModel.install``: each
+    entry's executor is the type ``executor_for`` picks for its plan, and it
+    counts into the graph stats of the cache that holds it."""
+    made = {}
+    real = CompiledModel.install
+
+    def spy(self, bindings, tuner):
+        entry = real(self, bindings, tuner)
+        made[self.cache_key(bindings)] = (self, entry)
+        return entry
+
+    monkeypatch.setattr(CompiledModel, "install", spy)
+    if maker == "tuned swap":
+        cache = _tuned_swap_cache()
+    else:
+        tp = CompiledTokenPath(TokenPathConfig(), backend="cuda", device="cpu", s_granularity=8)
+        tp.decode_cm.specialized({"N": N, "S": S})
+        cache = tp.plan_cache
+        if maker == "load_artifact":
+            path = save_artifact(tp.decode_cm, str(tmp_path / "decode.json"))
+            made.clear()
+            cache = load_artifact(path, device="cpu").plan_cache
+            assert cache.stats["misses"] == 0
+    keys = list(cache.keys())
+    assert keys and set(keys) == set(made)
+    for key in keys:
+        owner, entry = made[key]
+        assert cache.peek(key) is entry
+        plan, run = entry
+        assert type(run) is type(executor_for(plan, owner.device, {}))
+        assert run.stats is cache.graph_stats
 
 
 # -- on the card ---------------------------------------------------------------
